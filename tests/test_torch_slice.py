@@ -1,0 +1,113 @@
+"""The port's serving slice end to end against the JAX package, its
+independence from jax, and chip_smoke.py's refusal to run without a card."""
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from test_serve import CCONFIG, TCONFIG
+from viewformer_tpu.evaluate import transformer as jev
+from viewformer_tpu.models.migt import MIGT
+from viewformer_tpu.models.vqgan import VQGAN
+from viewformer_tpu_torch.evaluate import transformer as tev
+from viewformer_tpu_torch.models import AutoModel
+from viewformer_tpu_torch.ops import attention_cuda
+from viewformer_tpu_torch.utils.convert import state_dict_from_jax
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _port(config, variables):
+    model = AutoModel.from_config(config, generator=torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_jax(model, variables))
+    return model
+
+
+def test_generate_batch_predictions_matches_jax():
+    cmodel, tmodel = VQGAN(CCONFIG), MIGT(TCONFIG)
+    k1, k2, k3 = jax.random.split(jax.random.PRNGKey(0), 3)
+    cvars = cmodel.init({'params': k1, 'quantizer': k2},
+                        jnp.zeros((1, 32, 32, 3), jnp.float32), training=False)
+    tvars = tmodel.init(k3, jnp.zeros((1, 5, 7), jnp.float32),
+                        jnp.zeros((1, 5, 16, 16), jnp.int32), compute_losses=False)
+    rng = np.random.RandomState(0)
+    images = rng.randint(0, 256, (2, 4, 32, 32, 3)).astype(np.uint8)
+    cameras = rng.randn(2, 4, 7).astype(np.float32)
+    cameras[..., 3:] /= np.linalg.norm(cameras[..., 3:], axis=-1, keepdims=True)
+
+    expected = jev.generate_batch_predictions(tmodel, tvars, cmodel, cvars, images, cameras,
+                                              _cache=jev.JitCallCache())
+    attention_cuda.reset_launch_counts()
+    port = tev.generate_batch_predictions(_port(TCONFIG, jax.device_get(tvars)),
+                                          _port(CCONFIG, jax.device_get(cvars)),
+                                          images, cameras)
+    assert port['generated_images'].dtype == np.uint8
+    assert port['generated_images'].shape == expected['generated_images'].shape
+    diff = np.abs(port['generated_images'].astype(int) - expected['generated_images'])
+    assert diff.max() <= 1
+    np.testing.assert_allclose(port['generated_cameras'], expected['generated_cameras'],
+                               atol=1e-4)
+    np.testing.assert_array_equal(port['ground_truth_cameras'],
+                                  expected['ground_truth_cameras'])
+    np.testing.assert_array_equal(port['ground_truth_images'], images[:, -1])
+    # on the CPU the slice took the plain attention: no kernel launch counted
+    assert [fn.launches for fn in attention_cuda.KERNELS] == [0, 0]
+
+
+_NO_JAX = """
+import pkgutil, sys
+sys.modules['jax'] = None
+sys.modules['flax'] = None
+sys.path.insert(0, {root!r})
+import importlib, numpy as np, torch
+import viewformer_tpu_torch
+for info in pkgutil.walk_packages(viewformer_tpu_torch.__path__, 'viewformer_tpu_torch.'):
+    importlib.import_module(info.name)
+from viewformer_tpu.config import MIGTConfig, VQGANConfig
+from viewformer_tpu_torch.evaluate.transformer import generate_batch_predictions
+from viewformer_tpu_torch.models import AutoModel
+gen = torch.Generator().manual_seed(0)
+codebook = AutoModel.from_config(VQGANConfig(ch=32, ch_mult=[1, 2], num_res_blocks=1,
+    attn_resolutions=[8], z_channels=32, embed_dim=8, n_embed=16, image_size=16),
+    generator=gen)
+transformer = AutoModel.from_config(MIGTConfig(n_embeddings=16, n_head=2, d_model=32,
+    n_layer=2, token_image_size=8), generator=gen)
+rng = np.random.RandomState(0)
+out = generate_batch_predictions(transformer, codebook,
+    rng.randint(0, 256, (1, 3, 16, 16, 3)).astype(np.uint8),
+    rng.randn(1, 3, 7).astype(np.float32))
+assert out['generated_images'].shape == (1, 16, 16, 3)
+assert np.isfinite(out['generated_cameras']).all()
+assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules if sys.modules[m])
+print('ran without jax')
+"""
+
+
+def test_port_runs_with_jax_blocked():
+    proc = subprocess.run([sys.executable, '-c', _NO_JAX.format(root=ROOT)],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert 'ran without jax' in proc.stdout
+
+
+@pytest.mark.parametrize('alone', [False, True])
+def test_chip_smoke_refuses_without_card(tmp_path, alone):
+    """No CUDA device here: chip_smoke.py must fail and print no result,
+    from the repo and from a directory that holds nothing else."""
+    script = os.path.join(ROOT, 'chip_smoke.py')
+    cwd = ROOT
+    if alone:
+        cwd = str(tmp_path)
+        script = shutil.copy(script, cwd)
+    env = dict(os.environ, PYTHONPATH='')
+    proc = subprocess.run([sys.executable, script], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,18 @@
+"""viewformer_tpu_torch: the PyTorch and CUDA port of viewformer_tpu.
+
+Runs the serving main path (encode -> prefill -> generate -> decode ->
+localize) with PyTorch on the CPU or on an NVIDIA H100, where the two
+attention kernels are hand-written CUDA (csrc/branching_attention.cu). The
+JAX package stays the reference; this package imports none of it except the
+framework-free viewformer_tpu.config.
+"""
+import torch
+
+# The codebook search (ops/quantizer.nearest_codes) must run in full f32, as
+# the reference's HIGHEST-precision product does: TF32 keeps ~3 decimal
+# digits and flips codes near Voronoi boundaries. cuDNN convolutions default
+# to TF32 as well; f32 convolutions are held to f32 with them.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,254 @@
+// Branching block attention forward kernels for Hopper (sm_90a), bf16 in and out.
+//
+// B1 block_causal_attention_fwd replaces the Pallas kernel
+//    viewformer_tpu/ops/attention_pallas.py:_block_causal_kernel3 (stream-0
+//    attention: a query in frame t attends every key of frames <= t).
+// B2 branch_attention_fwd replaces
+//    viewformer_tpu/ops/attention_pallas.py:_branch_kernel3 (side-stream
+//    attention: stream-0 keys of earlier frames plus the query's own frame in
+//    its own stream, one joint softmax). With one query frame over a KV cache
+//    it also replaces the dense _attend_cache of
+//    viewformer_tpu/models/migt_incremental.py.
+//
+// Conventions kept from the reference: no 1/sqrt(dh) scale, f32 scores and
+// softmax, the softmax weights rounded to the value dtype (bf16) before the
+// product with V, f32 accumulation.
+//
+// Design. The Pallas kernels keep all of one (batch, head)'s K and V in VMEM
+// and finish in one pass. At T*L = 1280 and dh = 64, K+V of one (b, h) in bf16
+// is 320 KB, above the 227 KB of shared memory a block may use on an H100. So
+// each block owns one query frame (L = 64 rows) and streams K/V one frame
+// (64 keys) at a time through shared memory with an online f32 softmax
+// (running max and sum per row, the f32 output rescaled in shared memory).
+// Frames that the mask zeroes out are skipped, not computed: every query row
+// attends at least its own frame, so the reference's -1e9 scores contribute
+// exp(-1e9 - m) = 0 in f32 and skipping them is exact. Within a visited frame
+// no key is masked, so the kernels hold no mask at all.
+//
+// What bounds it: at the main path's shapes B1 does ~1 MFLOP per (query
+// frame, key frame) pair on 16 KB of K/V. The products run on the tensor
+// cores through WMMA 16x16x16 bf16 tiles (4 warps, 16 query rows each), with
+// no copy/compute overlap: the loads of each K/V frame are exposed. Simple
+// and right first; TMA, wgmma and a pipelined ring are later work.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+#include <stdint.h>
+
+using namespace nvcuda;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kRows = 64;    // tokens per frame (L): query rows and keys per tile
+constexpr int kDh = 64;      // head width
+constexpr int kWarps = 4;    // each warp owns 16 query rows
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = kRows * kDh;  // elements of one [64, 64] tile
+
+// dynamic shared memory layout
+constexpr int kOffQ = 0;
+constexpr int kOffK = kOffQ + kTile * 2;
+constexpr int kOffV = kOffK + kTile * 2;
+constexpr int kOffP = kOffV + kTile * 2;    // bf16 softmax numerators
+constexpr int kOffS = kOffP + kTile * 2;    // f32 scores
+constexpr int kOffO = kOffS + kTile * 4;    // f32 output accumulator
+constexpr int kOffM = kOffO + kTile * 4;    // f32 running row max
+constexpr int kOffL = kOffM + kRows * 4;    // f32 running row sum
+constexpr int kSmemBytes = kOffL + kRows * 4;
+
+struct Smem {
+  bf16* q;
+  bf16* k;
+  bf16* v;
+  bf16* p;
+  float* s;
+  float* o;
+  float* m;
+  float* l;
+};
+
+__device__ Smem carve(unsigned char* base) {
+  Smem sm;
+  sm.q = reinterpret_cast<bf16*>(base + kOffQ);
+  sm.k = reinterpret_cast<bf16*>(base + kOffK);
+  sm.v = reinterpret_cast<bf16*>(base + kOffV);
+  sm.p = reinterpret_cast<bf16*>(base + kOffP);
+  sm.s = reinterpret_cast<float*>(base + kOffS);
+  sm.o = reinterpret_cast<float*>(base + kOffO);
+  sm.m = reinterpret_cast<float*>(base + kOffM);
+  sm.l = reinterpret_cast<float*>(base + kOffL);
+  return sm;
+}
+
+// One contiguous [64, 64] bf16 tile (8 KB) from global to shared memory,
+// 16 bytes a thread per step.
+__device__ void load_tile(bf16* dst, const bf16* src) {
+  const uint4* s = reinterpret_cast<const uint4*>(src);
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  for (int i = threadIdx.x; i < kTile / 8; i += kThreads) d[i] = s[i];
+}
+
+__device__ void init_state(const Smem& sm) {
+  for (int i = threadIdx.x; i < kTile; i += kThreads) sm.o[i] = 0.f;
+  for (int i = threadIdx.x; i < kRows; i += kThreads) {
+    sm.m[i] = -INFINITY;
+    sm.l[i] = 0.f;
+  }
+}
+
+// Fold one frame of keys (sm.k) and values (sm.v) into the warp's 16 rows.
+// Touches only the warp's own rows of s, p, o, m, l.
+__device__ void attend_frame(const Smem& sm, int warp, int lane) {
+  const int r0 = warp * 16;
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
+
+  // S = Q K^T: K is [key, d] row-major, i.e. K^T column-major
+  {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+    for (int n = 0; n < kRows / 16; ++n) {
+      wmma::fill_fragment(c, 0.f);
+      for (int kk = 0; kk < kDh / 16; ++kk) {
+        wmma::load_matrix_sync(a, sm.q + r0 * kDh + kk * 16, kDh);
+        wmma::load_matrix_sync(b, sm.k + n * 16 * kDh + kk * 16, kDh);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(sm.s + r0 * kRows + n * 16, c, kRows, wmma::mem_row_major);
+    }
+  }
+  __syncwarp();
+
+  // online softmax: two lanes per row, 32 columns each
+  const int row = r0 + lane / 2;
+  const int half = lane & 1;
+  const float* srow = sm.s + row * kRows + half * 32;
+  float mx = -INFINITY;
+  for (int j = 0; j < 32; ++j) mx = fmaxf(mx, srow[j]);
+  mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+  const float m_old = sm.m[row];
+  const float m_new = fmaxf(m_old, mx);
+  const float scale = expf(m_old - m_new);  // 0 on the first frame (m_old = -inf)
+  bf16* prow = sm.p + row * kRows + half * 32;
+  float sum = 0.f;
+  for (int j = 0; j < 32; ++j) {
+    const float e = expf(srow[j] - m_new);
+    prow[j] = __float2bfloat16(e);
+    sum += e;
+  }
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  float* orow = sm.o + row * kDh + half * 32;
+  for (int j = 0; j < 32; ++j) orow[j] *= scale;
+  __syncwarp();  // both lanes of the row have read m_old
+  if (half == 0) {
+    sm.m[row] = m_new;
+    sm.l[row] = sm.l[row] * scale + sum;
+  }
+  __syncwarp();
+
+  // O += P V: V is [key, d] row-major
+  {
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+    for (int n = 0; n < kDh / 16; ++n) {
+      wmma::load_matrix_sync(c, sm.o + r0 * kDh + n * 16, kDh, wmma::mem_row_major);
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        wmma::load_matrix_sync(a, sm.p + r0 * kRows + kk * 16, kRows);
+        wmma::load_matrix_sync(b, sm.v + kk * 16 * kDh + n * 16, kDh);
+        wmma::mma_sync(c, a, b, c);
+      }
+      wmma::store_matrix_sync(sm.o + r0 * kDh + n * 16, c, kDh, wmma::mem_row_major);
+    }
+  }
+  __syncwarp();
+}
+
+// Each frame's K and V pass through shared memory shared by all warps.
+__device__ void attend_global_frame(const Smem& sm, const bf16* k, const bf16* v,
+                                    int warp, int lane) {
+  __syncthreads();  // every warp is done with the previous frame's K/V
+  load_tile(sm.k, k);
+  load_tile(sm.v, v);
+  __syncthreads();
+  attend_frame(sm, warp, lane);
+}
+
+__device__ void write_out(const Smem& sm, bf16* out, int warp, int lane) {
+  const int row = warp * 16 + lane / 2;
+  const int half = lane & 1;
+  const float inv = 1.f / sm.l[row];
+  const float* orow = sm.o + row * kDh + half * 32;
+  bf16* grow = out + row * kDh + half * 32;
+  for (int j = 0; j < 32; ++j) grow[j] = __float2bfloat16(orow[j] * inv);
+}
+
+// q, k, v, o: [BH, T*64, 64]. grid (T, BH): block (t, bh) computes query
+// frame t against key frames 0..t.
+__global__ void __launch_bounds__(kThreads)
+block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o, int frames) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = blockIdx.x;
+  const size_t base = (size_t)blockIdx.y * frames * kTile;
+  load_tile(sm.q, q + base + (size_t)t * kTile);
+  init_state(sm);
+  for (int f = 0; f <= t; ++f)
+    attend_global_frame(sm, k + base + (size_t)f * kTile, v + base + (size_t)f * kTile,
+                        warp, lane);
+  write_out(sm, o + base + (size_t)t * kTile, warp, lane);
+}
+
+// q, kb, vb, o: [G, TQ*64, 64]; k0, v0: [BH0, F0*64, 64] shared by the
+// G / BH0 branches (branch g reads row g % BH0). grid (TQ, G): block (tq, g)
+// computes query frame first_q_frame + tq against stream-0 frames
+// < min(that frame, n_old), then its own frame of kb/vb.
+__global__ void __launch_bounds__(kThreads)
+branch_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
+              const bf16* __restrict__ v0, const bf16* __restrict__ kb,
+              const bf16* __restrict__ vb, bf16* __restrict__ o, int q_frames,
+              int old_frames, int bh0, int first_q_frame, int n_old) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int tq = blockIdx.x;
+  const int g = blockIdx.y;
+  const size_t own = ((size_t)g * q_frames + tq) * kTile;
+  const size_t base0 = (size_t)(g % bh0) * old_frames * kTile;
+  const int n_prev = min(first_q_frame + tq, n_old);
+  load_tile(sm.q, q + own);
+  init_state(sm);
+  for (int f = 0; f < n_prev; ++f)
+    attend_global_frame(sm, k0 + base0 + (size_t)f * kTile, v0 + base0 + (size_t)f * kTile,
+                        warp, lane);
+  attend_global_frame(sm, kb + own, vb + own, warp, lane);
+  write_out(sm, o + own, warp, lane);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each launches on the given stream,
+// does not synchronise, and returns cudaGetLastError() of the launch.
+extern "C" int block_causal_attention_fwd(const void* q, const void* k, const void* v,
+                                          void* o, int bh, int frames, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      block_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  block_causal_kernel<<<dim3(frames, bh), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, frames);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int branch_attention_fwd(const void* q, const void* k0, const void* v0,
+                                    const void* kb, const void* vb, void* o, int g,
+                                    int q_frames, int bh0, int old_frames,
+                                    int first_q_frame, int n_old, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      branch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  branch_kernel<<<dim3(q_frames, g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
+      (bf16*)o, q_frames, old_frames, bh0, first_q_frame, n_old);
+  return (int)cudaGetLastError();
+}
