@@ -5,15 +5,26 @@
 
 Refuses to run without a CUDA device. Phases, each printing a JSON line:
   1. the card's name and power limit; build the CUDA kernels from
-     viewformer_tpu_torch/csrc (nvcc, sm_90a) and print the build time;
+     viewformer_tpu_torch/csrc (one nvcc a source, in parallel, sm_90a) and
+     print the build time;
   2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes, with CUDA-event times of both;
+     paths' shapes, with CUDA-event times of both: the forward kernels B1/B2
+     at the serving shapes and, with their log-sum-exp output, at the
+     training shapes; the backward kernels B3/B4 at the training shapes;
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
      of the path was launched the expected number of times;
   4. one sequence through the port on the card (bf16, kernels) and on the CPU
-     (f32, plain versions) with the same weights; checks the generate logits.
+     (f32, plain versions) with the same weights; checks the generate logits;
+  5. the full-width training path (MIGTConfig(dropout=0.0), f32 parameters,
+     bf16 compute, per-block remat) takes a warm-up step and 5 timed steps at
+     64 sequences x 20 frames through process_batch and the train step;
+     checks the losses and the exact launch counts of all four kernels;
+  6. one train step at full width on 2 sequences on the card (bf16, kernels)
+     and on the CPU (f32, plain versions) from the same weights and batch;
+     checks the loss and gradients, then that 3 steps move the parameters
+     the same way.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -30,6 +41,8 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, S, SIZE = 32, 20, 128
 N_REQUESTS = 3
+TRAIN_B, TRAIN_STEPS = 64, 5
+COMPARE_B = 2  # phase 6: the CPU's f32 step at full width is the slow part
 
 # Phase 2: max|kernel - plain| / max|plain|, plain in f32 from the same bf16
 # inputs. The kernel rounds its output to bf16 (relative 2^-8 = 3.9e-3) and,
@@ -42,6 +55,29 @@ KERNEL_TOL = 1e-2
 # residual updates); this checks that the path is the same, not the kernels
 # (phase 2 does that).
 LOGITS_TOL = 5e-2
+# Phase 2, backward: max|kernel - plain| / max|plain| of each gradient. Beside
+# the bf16 output rounding, the kernels round dS and W to bf16 before the
+# products (as the reference does, attention_pallas.py:171-179), one more
+# rounding than the forward, and they take rowsum(dO * O) from the bf16
+# output O where the plain twin takes rowsum(dP * W) in f32.
+GRAD_TOL = 2e-2
+# Phase 2: |lse_kernel - lse_plain|. The kernel sums the exponentials in
+# another order; lse is O(10) (raw q.k scores), so 1e-3 is ~1e-4 relative.
+LSE_TOL = 1e-3
+# Phase 6: the card's loss within 5e-2 (relative) of the CPU's, and per
+# tensor gradient cosine similarity >= 0.99: bf16 activations through 12
+# layers against f32. After 3 steps (warmup_steps=1, so two updates) the
+# parameter changes must point the same way: Adam's first updates are close
+# to lr * sign(grad), so elements whose gradient lies within the bf16 noise
+# may flip sign. On an H100 the gradient cosines were >= 0.9999 and the
+# update cosines 0.9965-0.9985; 0.95 leaves room for that noise and still
+# fails when a layer's gradient is lost or wrong.
+TRAIN_LOSS_TOL = 5e-2
+GRAD_COSINE = 0.99
+UPDATE_COSINE = 0.95
+COMPARED = ('wte.weight', 'h.0.attn.c_attn.weight', 'h.11.mlp.c_fc.weight',
+            'pose_criterion.pose_classifier.c_fc.weight',
+            'pose_criterion.pose_classifier.c_proj.weight')
 
 
 def check(condition, message):
@@ -56,7 +92,7 @@ def emit(record, log):
 
 def time_ms(fn, n=20):
     """Median of n single-call CUDA-event timings, after 3 warm-up calls."""
-    for _ in range(3):
+    for _ in range(min(n, 3)):
         fn()
     times = []
     for _ in range(n):
@@ -101,12 +137,65 @@ def kernel_checks(ac, log):
               'rel_err': rel, 'tol': KERNEL_TOL, 'ms': ms, 'plain_ms': plain_ms}, log)
         check(torch.isfinite(out).all().item(), f'{name} ({form}): non-finite output')
         check(rel <= KERNEL_TOL, f'{name} ({form}): rel err {rel} > {KERNEL_TOL}')
-        # the first case of each kernel is the main path's shape
+        # the first case of each kernel is the serving path's shape
         if name not in results:
             results[name] = [err, ms, plain_ms]
         results[name][0] = max(results[name][0], err)
         del out, ref
     torch.cuda.empty_cache()
+    results.update(training_kernel_checks(ac, rand, log))
+    return results
+
+
+def training_kernel_checks(ac, rand, log):
+    """Phase 2 at the training path's shapes (B=64, T=20, L=64, dh=64,
+    H=12, S=2 branches): B1/B2 with the log-sum-exp, then B3/B4 from the
+    same bf16 inputs (out and lse from B1/B2) against their plain twins in
+    f32. Returns {backward kernel name: (max_abs_err, ms, plain_ms)}."""
+    BH, T, L = TRAIN_B * 12, 20, 64
+    q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
+    qb, kb, vb, doutb = (rand(2 * BH, T * L, 64) for _ in range(4))
+    results = {}
+    cases = [
+        ('block_causal_attention_fwd', ac.block_causal_attention_fwd,
+         ac.block_causal_attention_plain, (q, k, v), (L,),
+         ac.block_causal_attention_bwd, ac.block_causal_attention_bwd_plain, (dout,)),
+        ('branch_attention_fwd', ac.branch_attention_fwd, ac.branch_attention_plain,
+         (qb, k, v, kb, vb), (L, 0, T),
+         ac.branch_attention_bwd, ac.branch_attention_bwd_plain, (doutb,)),
+    ]
+    for name, fwd, fwd_plain, inputs, args, bwd, bwd_plain, grads in cases:
+        out, lse = fwd(*inputs, *args, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fwd_plain(*(t.float() for t in inputs), *args, return_lse=True)
+        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        emit({'phase': 'kernel', 'name': name, 'form': 'training: with log-sum-exp',
+              'shapes': [list(t.shape) for t in inputs], 'rel_err': rel, 'tol': KERNEL_TOL,
+              'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL}, log)
+        check(rel <= KERNEL_TOL, f'{name} (training): rel err {rel} > {KERNEL_TOL}')
+        check(lse_err <= LSE_TOL, f'{name}: lse err {lse_err} > {LSE_TOL}')
+        del ref, ref_lse
+
+        bwd_name = bwd.__name__
+        kernel_grads = bwd(*inputs, out, *grads, lse, L)
+        torch.cuda.synchronize()
+        plain_grads = bwd_plain(*(t.float() for t in inputs + grads), L)
+        errs = [(g.float() - p).abs().max().item() for g, p in zip(kernel_grads, plain_grads)]
+        rels = [e / p.abs().max().item() for e, p in zip(errs, plain_grads)]
+        finite = all(torch.isfinite(g).all().item() for g in kernel_grads)
+        del kernel_grads, plain_grads
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: bwd(*inputs, out, *grads, lse, L))
+        plain_ms = time_ms(lambda: bwd_plain(*inputs, *grads, L), n=5)
+        emit({'phase': 'kernel', 'name': bwd_name, 'form': 'training backward',
+              'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
+              'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms}, log)
+        check(finite, f'{bwd_name}: non-finite gradient')
+        check(max(rels) <= GRAD_TOL, f'{bwd_name}: rel err {rels} > {GRAD_TOL}')
+        results[bwd_name] = [max(errs), ms, plain_ms]
+        del out, lse
+        torch.cuda.empty_cache()
     return results
 
 
@@ -149,7 +238,8 @@ def main_path(ac, models, log, card):
     launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
 
     expected = {'block_causal_attention_fwd': N_REQUESTS * 11,
-                'branch_attention_fwd': N_REQUESTS * 24}
+                'branch_attention_fwd': N_REQUESTS * 24,
+                'block_causal_attention_bwd': 0, 'branch_attention_bwd': 0}
     stages = {stage: statistics.median(ms) for stage, ms in stage_ms.items()}
     emit({'phase': 'main_path', 'card': card, 'requests': N_REQUESTS,
           'batch': B, 'frames_per_sequence': S, 'image_size': SIZE,
@@ -201,6 +291,122 @@ def card_vs_cpu(models, cpu_models, log):
     check(rel <= LOGITS_TOL, f'card logits differ from CPU by {rel} > {LOGITS_TOL}')
 
 
+def train_batch(n, seed, device):
+    """n sequences of S frames: seeded random codes and cameras, each
+    sequence through process_batch(augment='relative') as the data layer
+    would."""
+    from viewformer_tpu_torch.train.transformer import process_batch
+
+    rng = np.random.RandomState(seed)
+    cameras, tokens = [], []
+    for _ in range(n):
+        quaternion = rng.randn(S, 4)
+        quaternion /= np.linalg.norm(quaternion, axis=-1, keepdims=True)
+        c, t = process_batch(np.concatenate([rng.randn(S, 3), quaternion], -1),
+                             rng.randint(0, 1024, (S, 8, 8)), 'relative', 'train')
+        cameras.append(c)
+        tokens.append(t)
+    return (torch.from_numpy(np.stack(cameras)).to(device),
+            torch.from_numpy(np.stack(tokens)).to(device))
+
+
+def train_path(ac, config, log, card):
+    """Phase 5. Returns the launch counts of the timed steps."""
+    from viewformer_tpu_torch.train.transformer import (init_transformer_state,
+                                                        make_transformer_train_step)
+
+    model, state = init_transformer_state(config, torch.Generator().manual_seed(0),
+                                          torch.bfloat16, 'cuda')
+    train_step = make_transformer_train_step(model, config)
+    batches = [train_batch(TRAIN_B, seed, 'cuda') for seed in range(TRAIN_STEPS + 1)]
+    state, metrics = train_step(state, batches[0])  # warm-up
+    warm_loss = metrics['loss'].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ac.reset_launch_counts()
+    step_s, losses = [], []
+    for batch in batches[1:]:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch)
+        losses.append(metrics['loss'].item())  # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
+
+    # per layer and step: forward and remat recompute run B1 and B2 once
+    # each, the backward B4 once and B3 once, except in the last layer: its
+    # stream-0 output reaches no loss (the losses read the generate and
+    # localize streams), so autograd never runs that B3; its K0/V0 still get
+    # gradients through B4
+    n = config.n_layer * TRAIN_STEPS
+    expected = {'block_causal_attention_fwd': 2 * n, 'branch_attention_fwd': 2 * n,
+                'block_causal_attention_bwd': n - TRAIN_STEPS, 'branch_attention_bwd': n}
+    median = statistics.median(step_s)
+    emit({'phase': 'train', 'card': card, 'batch': TRAIN_B, 'frames_per_sequence': S,
+          'tokens_per_step': TRAIN_B * S * 64, 'steps': TRAIN_STEPS, 'step_s': step_s,
+          'step_s_median': median, 'tokens_per_s': TRAIN_B * S * 64 / median,
+          'max_memory_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
+          'warmup_loss': warm_loss, 'losses': losses, 'metrics': {
+              key: value.item() for key, value in metrics.items()},
+          'launches': launches, 'expected_launches': expected}, log)
+    check(all(np.isfinite(losses + [warm_loss])), f'non-finite train loss {losses}')
+    check(launches == expected, f'train launch counts {launches} != {expected}')
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_card_vs_cpu(config, log):
+    """Phase 6: the same weights and batch through the train step on the card
+    (bf16 compute, kernels, remat) and on the CPU (f32, plain twins)."""
+    from viewformer_tpu_torch.train.transformer import (init_transformer_state,
+                                                        make_transformer_train_step)
+
+    batch = train_batch(COMPARE_B, seed=100, device='cpu')
+    runs = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', torch.float32)):
+        model, state = init_transformer_state(config, torch.Generator().manual_seed(0), dtype,
+                                              device, remat=device == 'cuda', warmup_steps=1)
+        step = make_transformer_train_step(model, config)
+        params = dict(model.named_parameters())
+        initial = {name: params[name].detach().cpu().clone() for name in COMPARED}
+        device_batch = tuple(x.to(device) for x in batch)
+        t0 = time.perf_counter()
+        state, metrics = step(state, device_batch)  # lr(0) = 0: no update
+        losses = [metrics['loss'].item()]
+        first_step_s = time.perf_counter() - t0
+        grads = {name: params[name].grad.detach().cpu().clone() for name in COMPARED}
+        for _ in range(2):
+            state, metrics = step(state, device_batch)
+            losses.append(metrics['loss'].item())
+        moved = {name: params[name].detach().cpu() - initial[name] for name in COMPARED}
+        runs[device] = losses, grads, moved, first_step_s
+        del model, state, params
+    torch.cuda.empty_cache()
+
+    def cosine(a, b):  # in float64: an f32 dot over millions of elements rounds past 1
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    (card_losses, card_grads, card_moved, card_s), (cpu_losses, cpu_grads, cpu_moved, cpu_s) = \
+        runs['cuda'], runs['cpu']
+    loss_rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
+    grad_cosine = {name: cosine(card_grads[name], cpu_grads[name]) for name in COMPARED}
+    update_cosine = {name: cosine(card_moved[name], cpu_moved[name]) for name in COMPARED}
+    emit({'phase': 'train_card_vs_cpu', 'batch': COMPARE_B, 'frames_per_sequence': S,
+          'card_losses': card_losses, 'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel,
+          'loss_tol': TRAIN_LOSS_TOL, 'grad_cosine': grad_cosine, 'grad_cosine_min': GRAD_COSINE,
+          'update_cosine': update_cosine, 'update_cosine_min': UPDATE_COSINE,
+          'card_first_step_s': card_s, 'cpu_first_step_s': cpu_s}, log)
+    check(all(np.isfinite(card_losses)), f'non-finite card losses {card_losses}')
+    check(loss_rel <= TRAIN_LOSS_TOL, f'card loss differs from CPU by {loss_rel}')
+    for name in COMPARED:
+        check(grad_cosine[name] >= GRAD_COSINE,
+              f'{name}: gradient cosine {grad_cosine[name]} < {GRAD_COSINE}')
+        check(update_cosine[name] >= UPDATE_COSINE,
+              f'{name}: update cosine {update_cosine[name]} < {UPDATE_COSINE}')
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -216,10 +422,11 @@ def main():
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     t0 = time.perf_counter()
-    lib_path = ac.build()
+    libs = ac.build()
     build_s = time.perf_counter() - t0
     emit({'phase': 'build', 'card': card, 'torch': torch.__version__,
-          'cuda': torch.version.cuda, 'library': os.path.relpath(lib_path, ROOT),
+          'cuda': torch.version.cuda,
+          'libraries': [os.path.relpath(path, ROOT) for path in libs.values()],
           'seconds': build_s, 'ptxas': ac.build_log().splitlines()}, log)
 
     kernels = kernel_checks(ac, log)
@@ -230,15 +437,28 @@ def main():
                 AutoModel.from_config(VQGANConfig(), dtype, device, gen))
 
     models = build_models(torch.bfloat16, 'cuda')
-    launches = main_path(ac, models, log, card)
+    launches = {'serve': main_path(ac, models, log, card)}
     card_vs_cpu(models, build_models(torch.float32, 'cpu'), log)
+    del models
+    torch.cuda.empty_cache()
 
-    sources = {'block_causal_attention_fwd': 'viewformer_tpu/ops/attention_pallas.py:52',
-               'branch_attention_fwd': 'viewformer_tpu/ops/attention_pallas.py:69'}
+    train_config = MIGTConfig(dropout=0.0)
+    launches['train'] = train_path(ac, train_config, log, card)
+    train_card_vs_cpu(train_config, log)
+
+    csrc = 'viewformer_tpu_torch/csrc/'
+    sources = {
+        'block_causal_attention_fwd': (csrc + 'branching_attention.cu', ':52'),
+        'branch_attention_fwd': (csrc + 'branching_attention.cu', ':69'),
+        'block_causal_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':149'),
+        'branch_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':182'),
+    }
     summary = {'kernels': [
-        {'name': name, 'route': 'cuda', 'source': 'viewformer_tpu_torch/csrc/branching_attention.cu',
-         'replaces': sources[name], 'launches': launches[name], 'max_abs_err': err,
-         'ms': ms, 'plain_ms': plain_ms}
+        {'name': name, 'route': 'cuda', 'source': sources[name][0],
+         'replaces': 'viewformer_tpu/ops/attention_pallas.py' + sources[name][1],
+         'launches': sum(path[name] for path in launches.values()),
+         'launches_by_path': {path: counts[name] for path, counts in launches.items()},
+         'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
         for name, (err, ms, plain_ms) in kernels.items()]}
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out', 'chip_smoke.json'), 'w') as f:

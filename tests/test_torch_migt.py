@@ -1,5 +1,6 @@
 """The port's incremental MIGT path (prefill / generate / localize /
-reduce_cameras) against the JAX package, with weights through the bridge."""
+reduce_cameras) against the JAX package, with weights through the bridge,
+and against the port's own one-shot forward."""
 import dataclasses
 
 import numpy as np
@@ -73,6 +74,39 @@ def test_generate_and_localize_match_jax(setup):
     np.testing.assert_allclose(logits.numpy(), expected_logits, atol=2e-4)
     np.testing.assert_allclose(pred.numpy(), np.asarray(expected_pred), atol=1e-4)
     np.testing.assert_allclose(cams.numpy(), expected_cams, atol=1e-4)
+
+
+@pytest.mark.parametrize('n,pad', [(1, False), (2, False), (3, False), (3, True)])
+def test_incremental_matches_port_one_shot(setup, n, pad):
+    """The port's incremental path against its own one-shot forward, for
+    every context size n: prefill n frames (with pad, plus an inert trailing
+    frame, valid_frames=n), generate the query frame; the one-shot forward
+    sees the n frames and a mask-token frame with the query pose."""
+    _, _, port, poses, tokens = setup
+    query = np.full_like(tokens[:, :1], port.mask_token)
+    one_shot_poses = np.concatenate([poses[:, :n], poses[:, -1:]], 1)
+    context = n + 1 if pad else n
+    with torch.no_grad():
+        expected = port(torch.from_numpy(one_shot_poses),
+                        torch.from_numpy(np.concatenate([tokens[:, :n], query], 1)))
+        cache = tinc.prefill_cache(port, torch.from_numpy(tokens[:, :context]),
+                                   torch.from_numpy(poses[:, :context]), valid_frames=n)
+        logits = tinc.generate_frame(port, cache, torch.from_numpy(poses[:, -1]))
+    assert cache.n == n
+    np.testing.assert_allclose(logits.numpy(), expected['logits'][:, -1].numpy(), atol=2e-4)
+
+
+def test_localize_matches_port_one_shot_eval(setup):
+    """localize_frame against the port's one-shot eval forward, where the
+    query frame rides stream 0 with the localization token as its pose."""
+    _, _, port, poses, tokens = setup
+    with torch.no_grad():
+        expected = port(torch.from_numpy(poses[:, :3]), torch.from_numpy(tokens[:, :4]))
+        cache = tinc.prefill_cache(port, torch.from_numpy(tokens[:, :3]),
+                                   torch.from_numpy(poses[:, :3]))
+        pred = tinc.localize_frame(port, cache, torch.from_numpy(tokens[:, 3]))
+    np.testing.assert_allclose(pred.numpy(), expected['pose_prediction'][:, -1].numpy(),
+                               atol=2e-4)
 
 
 @pytest.mark.parametrize('options', [

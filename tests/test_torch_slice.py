@@ -1,5 +1,6 @@
 """The port's serving slice end to end against the JAX package, its
-independence from jax, and chip_smoke.py's refusal to run without a card."""
+independence from jax (serving and a train step, with jax and flax blocked),
+and chip_smoke.py's refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -58,7 +59,7 @@ def test_generate_batch_predictions_matches_jax():
                                   expected['ground_truth_cameras'])
     np.testing.assert_array_equal(port['ground_truth_images'], images[:, -1])
     # on the CPU the slice took the plain attention: no kernel launch counted
-    assert [fn.launches for fn in attention_cuda.KERNELS] == [0, 0]
+    assert all(fn.launches == 0 for fn in attention_cuda.KERNELS)
 
 
 _NO_JAX = """
@@ -85,6 +86,16 @@ out = generate_batch_predictions(transformer, codebook,
     rng.randn(1, 3, 7).astype(np.float32))
 assert out['generated_images'].shape == (1, 16, 16, 3)
 assert np.isfinite(out['generated_cameras']).all()
+from viewformer_tpu_torch.train.transformer import (init_transformer_state,
+    make_transformer_train_step, process_batch)
+config = MIGTConfig(n_embeddings=16, n_head=2, d_model=32, n_layer=2, dropout=0.0,
+    sequence_size=3, token_image_size=2, n_loss_skip=1, localization_weight='1')
+model, state = init_transformer_state(config, gen, dtype=torch.float32)
+cameras, tokens = process_batch(rng.randn(3, 7).astype(np.float32),
+    rng.randint(0, 16, (3, 2, 2)), 'relative', 'train')
+state, metrics = make_transformer_train_step(model, config)(
+    state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]))
+assert state.step == 1 and np.isfinite(float(metrics['loss']))
 assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules if sys.modules[m])
 print('ran without jax')
 """

@@ -1,10 +1,11 @@
 """viewformer_tpu_torch: the PyTorch and CUDA port of viewformer_tpu.
 
 Runs the serving main path (encode -> prefill -> generate -> decode ->
-localize) with PyTorch on the CPU or on an NVIDIA H100, where the two
-attention kernels are hand-written CUDA (csrc/branching_attention.cu). The
-JAX package stays the reference; this package imports none of it except the
-framework-free viewformer_tpu.config.
+localize) and the transformer train step (without dropout) with PyTorch on
+the CPU or on an NVIDIA H100, where the four attention kernels, forward and
+backward, are hand-written CUDA (csrc/). The JAX package stays the
+reference; this package imports none of it except the framework-free
+viewformer_tpu.config.
 """
 import torch
 

@@ -14,6 +14,11 @@
 // softmax, the softmax weights rounded to the value dtype (bf16) before the
 // product with V, f32 accumulation.
 //
+// For training, both kernels can also write each query row's f32
+// log-sum-exp of its scores, lse = m + log(l) from the online softmax, which
+// the backward kernels (branching_attention_bwd.cu) recompute the weights
+// from. Serving passes a null pointer and writes nothing more.
+//
 // Design. The Pallas kernels keep all of one (batch, head)'s K and V in VMEM
 // and finish in one pass. At T*L = 1280 and dh = 64, K+V of one (b, h) in bf16
 // is 320 KB, above the 227 KB of shared memory a block may use on an H100. So
@@ -30,22 +35,20 @@
 // cores through WMMA 16x16x16 bf16 tiles (4 warps, 16 query rows each), with
 // no copy/compute overlap: the loads of each K/V frame are exposed. Simple
 // and right first; TMA, wgmma and a pipelined ring are later work.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "attention_tile.cuh"
 
 using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using tile::kDh;
+using tile::kRows;
+using tile::kThreads;
+using tile::kTile;
+using tile::load_tile;
 
 namespace {
-
-constexpr int kRows = 64;    // tokens per frame (L): query rows and keys per tile
-constexpr int kDh = 64;      // head width
-constexpr int kWarps = 4;    // each warp owns 16 query rows
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = kRows * kDh;  // elements of one [64, 64] tile
 
 // dynamic shared memory layout
 constexpr int kOffQ = 0;
@@ -80,14 +83,6 @@ __device__ Smem carve(unsigned char* base) {
   sm.m = reinterpret_cast<float*>(base + kOffM);
   sm.l = reinterpret_cast<float*>(base + kOffL);
   return sm;
-}
-
-// One contiguous [64, 64] bf16 tile (8 KB) from global to shared memory,
-// 16 bytes a thread per step.
-__device__ void load_tile(bf16* dst, const bf16* src) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  for (int i = threadIdx.x; i < kTile / 8; i += kThreads) d[i] = s[i];
 }
 
 __device__ void init_state(const Smem& sm) {
@@ -173,20 +168,23 @@ __device__ void attend_global_frame(const Smem& sm, const bf16* k, const bf16* v
   attend_frame(sm, warp, lane);
 }
 
-__device__ void write_out(const Smem& sm, bf16* out, int warp, int lane) {
+// out: the query frame's [64, 64] tile; lse: its 64 row entries, or null.
+__device__ void write_out(const Smem& sm, bf16* out, float* lse, int warp, int lane) {
   const int row = warp * 16 + lane / 2;
   const int half = lane & 1;
   const float inv = 1.f / sm.l[row];
   const float* orow = sm.o + row * kDh + half * 32;
   bf16* grow = out + row * kDh + half * 32;
   for (int j = 0; j < 32; ++j) grow[j] = __float2bfloat16(orow[j] * inv);
+  if (lse != nullptr && half == 0) lse[row] = sm.m[row] + logf(sm.l[row]);
 }
 
-// q, k, v, o: [BH, T*64, 64]. grid (T, BH): block (t, bh) computes query
-// frame t against key frames 0..t.
+// q, k, v, o: [BH, T*64, 64]; lse: [BH, T*64] or null. grid (T, BH): block
+// (t, bh) computes query frame t against key frames 0..t.
 __global__ void __launch_bounds__(kThreads)
 block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ o, int frames) {
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int frames) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = carve(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -197,18 +195,21 @@ block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int f = 0; f <= t; ++f)
     attend_global_frame(sm, k + base + (size_t)f * kTile, v + base + (size_t)f * kTile,
                         warp, lane);
-  write_out(sm, o + base + (size_t)t * kTile, warp, lane);
+  write_out(sm, o + base + (size_t)t * kTile,
+            lse == nullptr ? nullptr : lse + ((size_t)blockIdx.y * frames + t) * kRows,
+            warp, lane);
 }
 
-// q, kb, vb, o: [G, TQ*64, 64]; k0, v0: [BH0, F0*64, 64] shared by the
-// G / BH0 branches (branch g reads row g % BH0). grid (TQ, G): block (tq, g)
-// computes query frame first_q_frame + tq against stream-0 frames
-// < min(that frame, n_old), then its own frame of kb/vb.
+// q, kb, vb, o: [G, TQ*64, 64]; lse: [G, TQ*64] or null; k0, v0:
+// [BH0, F0*64, 64] shared by the G / BH0 branches (branch g reads row
+// g % BH0). grid (TQ, G): block (tq, g) computes query frame
+// first_q_frame + tq against stream-0 frames < min(that frame, n_old), then
+// its own frame of kb/vb.
 __global__ void __launch_bounds__(kThreads)
 branch_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
               const bf16* __restrict__ v0, const bf16* __restrict__ kb,
-              const bf16* __restrict__ vb, bf16* __restrict__ o, int q_frames,
-              int old_frames, int bh0, int first_q_frame, int n_old) {
+              const bf16* __restrict__ vb, bf16* __restrict__ o, float* __restrict__ lse,
+              int q_frames, int old_frames, int bh0, int first_q_frame, int n_old) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = carve(smem);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -223,32 +224,34 @@ branch_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
     attend_global_frame(sm, k0 + base0 + (size_t)f * kTile, v0 + base0 + (size_t)f * kTile,
                         warp, lane);
   attend_global_frame(sm, kb + own, vb + own, warp, lane);
-  write_out(sm, o + own, warp, lane);
+  write_out(sm, o + own, lse == nullptr ? nullptr : lse + own / kDh, warp, lane);
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on the given stream,
-// does not synchronise, and returns cudaGetLastError() of the launch.
+// does not synchronise, and returns cudaGetLastError() of the launch. lse may
+// be null.
 extern "C" int block_causal_attention_fwd(const void* q, const void* k, const void* v,
-                                          void* o, int bh, int frames, void* stream) {
+                                          void* o, void* lse, int bh, int frames,
+                                          void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       block_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   block_causal_kernel<<<dim3(frames, bh), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, frames);
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, frames);
   return (int)cudaGetLastError();
 }
 
 extern "C" int branch_attention_fwd(const void* q, const void* k0, const void* v0,
-                                    const void* kb, const void* vb, void* o, int g,
-                                    int q_frames, int bh0, int old_frames,
+                                    const void* kb, const void* vb, void* o, void* lse,
+                                    int g, int q_frames, int bh0, int old_frames,
                                     int first_q_frame, int n_old, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       branch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   branch_kernel<<<dim3(q_frames, g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
-      (bf16*)o, q_frames, old_frames, bh0, first_q_frame, n_old);
+      (bf16*)o, (float*)lse, q_frames, old_frames, bh0, first_q_frame, n_old);
   return (int)cudaGetLastError();
 }

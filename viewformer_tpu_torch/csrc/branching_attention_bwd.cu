@@ -1,0 +1,371 @@
+// Branching block attention backward kernels for Hopper (sm_90a), bf16 in and out.
+//
+// B3 block_causal_attention_bwd replaces the Pallas kernel
+//    viewformer_tpu/ops/attention_pallas.py:_block_causal_bwd_kernel3 (the
+//    backward of stream-0 block-causal attention, kernel B1).
+// B4 branch_attention_bwd replaces
+//    viewformer_tpu/ops/attention_pallas.py:_branch_bwd_kernel3 together with
+//    the sum over branches of dK0/dV0 in _fb_bwd (attention_pallas.py:630-631):
+//    the backward of the one-shot branch attention, kernel B2 with
+//    first_q_frame = 0 and n_old = T.
+//
+// Math, as the reference's (attention_pallas.py:138-146), no 1/sqrt(dh) scale:
+//   W  = softmax(S), S = Q K^T in f32, recomputed as exp(S - lse) from the
+//        forward's per-row f32 log-sum-exp (B1/B2 write it);
+//   dP = dO V^T in f32;   dS = W * (dP - D);
+//   dQ = dS K,   dK = dS^T Q,   dV = W^T dO,
+// with dS and W rounded to bf16 before the three products and f32
+// accumulation; every output rounded to bf16 once, at the end. D is taken as
+// rowsum(dO * O) over the forward's bf16 output O (FlashAttention-2), not as
+// the reference's rowsum(dP * W) over all keys: the two are equal up to the
+// rounding of O, and this way D needs no extra pass over the keys. In B4 the
+// softmax is the joint one over K0 frames < t and the own frame, so lse and D
+// cover both key sets.
+//
+// Design. The Pallas kernels accumulate dK/dV across q-tiles in a VMEM output
+// block, relying on the TPU running the grid in order. GPU blocks run in no
+// order, so here each output tile has exactly one owner block, which loops
+// over what feeds it; there are no atomics and the result is deterministic.
+// One launch holds two kinds of block:
+//   key blocks, one per (row, key frame j), own the 64 keys of frame j and
+//     accumulate dK/dV over the query frames that see j (B3: t >= j of the
+//     same row; B4: t > j of every branch of the row, so the sum over the S
+//     branches happens here, in f32, with no [S*BH, ...] temporary);
+//   query blocks, one per (row, query frame t), own the 64 query rows of
+//     frame t and accumulate dQ over the key frames t sees (B3: <= t; B4:
+//     K0 frames < t, then the own frame, whose dKb/dVb only frame t's queries
+//     feed, so the query block writes them too).
+// Every block streams the other side one [64, 64] frame tile at a time
+// through shared memory, as the forward kernels do (one (b, h)'s K/V, 320 KB
+// at T*L = 1280, does not fit in the 227 KB a block may use). Key blocks,
+// the longest (up to T or S*(T-1) frames), come first in the grid.
+//
+// What bounds it: each visited (query frame, key frame) pair costs four
+// 64x64x64 products in the block that owns it (S, dP, then dQ, or dK and
+// dV), so the pair's S and dP are computed twice, once by each owner: ~7
+// products a pair against the 5 of a single pass. The products run on the
+// tensor cores through WMMA 16x16x16 bf16 tiles, with no copy/compute
+// overlap. Simple and right first; TMA, wgmma and a pipelined ring are later
+// work.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <mma.h>
+
+#include "attention_tile.cuh"
+
+using namespace nvcuda;
+using tile::kDh;
+using tile::kRows;
+using tile::kThreads;
+using tile::kTile;
+using tile::load_tile;
+
+namespace {
+
+typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+
+// dynamic shared memory layout
+constexpr int kOffOwnA = 0;                    // bf16: Q (query blocks) or K (key blocks)
+constexpr int kOffOwnB = kOffOwnA + kTile * 2; // bf16: dO (query blocks) or V (key blocks)
+constexpr int kOffInA = kOffOwnB + kTile * 2;  // bf16 streamed: K (query) or Q (key blocks)
+constexpr int kOffInB = kOffInA + kTile * 2;   // bf16 streamed: V (query) or dO (key blocks)
+constexpr int kOffInO = kOffInB + kTile * 2;   // bf16: O, for D
+constexpr int kOffS = kOffInO + kTile * 2;     // f32 scores (transposed in key blocks)
+constexpr int kOffDP = kOffS + kTile * 4;      // f32 dO V^T (transposed in key blocks)
+constexpr int kOffP = kOffDP + kTile * 4;      // bf16 weights W
+constexpr int kOffDS = kOffP + kTile * 2;      // bf16 dS
+constexpr int kOffLse = kOffDS + kTile * 2;    // f32 per query row: log-sum-exp
+constexpr int kOffD = kOffLse + kRows * 4;     // f32 per query row: rowsum(dO * O)
+constexpr int kSmemBytes = kOffD + kRows * 4;
+
+struct Smem {
+  bf16* own_a;
+  bf16* own_b;
+  bf16* in_a;
+  bf16* in_b;
+  bf16* in_o;
+  float* s;
+  float* dp;
+  bf16* p;
+  bf16* ds;
+  float* lse;
+  float* d;
+};
+
+__device__ Smem carve(unsigned char* base) {
+  Smem sm;
+  sm.own_a = reinterpret_cast<bf16*>(base + kOffOwnA);
+  sm.own_b = reinterpret_cast<bf16*>(base + kOffOwnB);
+  sm.in_a = reinterpret_cast<bf16*>(base + kOffInA);
+  sm.in_b = reinterpret_cast<bf16*>(base + kOffInB);
+  sm.in_o = reinterpret_cast<bf16*>(base + kOffInO);
+  sm.s = reinterpret_cast<float*>(base + kOffS);
+  sm.dp = reinterpret_cast<float*>(base + kOffDP);
+  sm.p = reinterpret_cast<bf16*>(base + kOffP);
+  sm.ds = reinterpret_cast<bf16*>(base + kOffDS);
+  sm.lse = reinterpret_cast<float*>(base + kOffLse);
+  sm.d = reinterpret_cast<float*>(base + kOffD);
+  return sm;
+}
+
+// out[16, 64] (f32, row stride 64) = a[16, 64] b^T, with a the warp's 16 rows
+// of a row-major [64, 64] tile and b a whole row-major [64, 64] tile.
+__device__ void product_abt(float* out, const bf16* a, const bf16* b) {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
+  Acc c;
+  for (int n = 0; n < kRows / 16; ++n) {
+    wmma::fill_fragment(c, 0.f);
+    for (int kk = 0; kk < kDh / 16; ++kk) {
+      wmma::load_matrix_sync(fa, a + kk * 16, kDh);
+      wmma::load_matrix_sync(fb, b + n * 16 * kDh + kk * 16, kDh);
+      wmma::mma_sync(c, fa, fb, c);
+    }
+    wmma::store_matrix_sync(out + n * 16, c, kRows, wmma::mem_row_major);
+  }
+}
+
+// acc[16, 64] += a[16, 64] b, a the warp's 16 rows of a row-major [64, 64]
+// tile, b a row-major [64, 64] tile.
+__device__ void accumulate_ab(Acc* acc, const bf16* a, const bf16* b) {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+  for (int n = 0; n < kDh / 16; ++n)
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wmma::load_matrix_sync(fa, a + kk * 16, kRows);
+      wmma::load_matrix_sync(fb, b + kk * 16 * kDh + n * 16, kDh);
+      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    }
+}
+
+// acc[16, 64] += a[:, c0:c0+16]^T b, a and b row-major [64, 64] tiles.
+__device__ void accumulate_atb(Acc* acc, const bf16* a, int c0, const bf16* b) {
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
+  wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+  for (int n = 0; n < kDh / 16; ++n)
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      wmma::load_matrix_sync(fa, a + kk * 16 * kRows + c0, kRows);
+      wmma::load_matrix_sync(fb, b + kk * 16 * kDh + n * 16, kDh);
+      wmma::mma_sync(acc[n], fa, fb, acc[n]);
+    }
+}
+
+__device__ void zero(Acc* acc) {
+  for (int n = 0; n < kDh / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
+}
+
+// The warp's 16 rows of acc, rounded to bf16, into rows r0.. of the global
+// [64, 64] tile dst, through the warp's rows of the f32 scratch tile.
+__device__ void store_rows(const Acc* acc, float* scratch, bf16* dst, int r0, int lane) {
+  for (int n = 0; n < kDh / 16; ++n)
+    wmma::store_matrix_sync(scratch + r0 * kDh + n * 16, acc[n], kDh, wmma::mem_row_major);
+  __syncwarp();
+  const int row = r0 + lane / 2, half = lane & 1;
+  const float* srow = scratch + row * kDh + half * 32;
+  bf16* grow = dst + row * kDh + half * 32;
+  for (int j = 0; j < 32; ++j) grow[j] = __float2bfloat16(srow[j]);
+  __syncwarp();
+}
+
+// Loads a query frame's per-row state: O into in_o, its lse, then
+// D = rowsum(dO * O) from dO (already in shared memory at `dout`). All
+// threads; ends synchronised.
+__device__ void load_query_state(const Smem& sm, const bf16* o, const float* lse,
+                                 const bf16* dout) {
+  load_tile(sm.in_o, o);
+  if (threadIdx.x < kRows) sm.lse[threadIdx.x] = lse[threadIdx.x];
+  __syncthreads();
+  const int row = threadIdx.x / 2, half = threadIdx.x & 1;  // 2 threads a row
+  const bf16* a = dout + row * kDh + half * 32;
+  const bf16* b = sm.in_o + row * kDh + half * 32;
+  float sum = 0.f;
+  for (int j = 0; j < 32; ++j) sum += __bfloat162float(a[j]) * __bfloat162float(b[j]);
+  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+  if (half == 0) sm.d[row] = sum;
+  __syncthreads();
+}
+
+// From the warp's rows of s and dp: W = exp(s - lse), dS = W (dp - D), both
+// rounded to bf16 into p and ds. In key blocks the tiles are transposed
+// ([key, query]), so lse and D follow the column.
+template <bool kTransposed>
+__device__ void softmax_grad(const Smem& sm, int r0, int lane) {
+  const int row = r0 + lane / 2, half = lane & 1;
+  for (int j = 0; j < 32; ++j) {
+    const int col = half * 32 + j;
+    const int i = row * kRows + col;
+    const int q = kTransposed ? col : row;
+    const float w = expf(sm.s[i] - sm.lse[q]);
+    sm.p[i] = __float2bfloat16(w);
+    sm.ds[i] = __float2bfloat16(w * (sm.dp[i] - sm.d[q]));
+  }
+  __syncwarp();
+}
+
+// Query block: one streamed key frame (K in in_a, V in in_b) into the warp's
+// dQ rows. own_a holds Q, own_b dO.
+__device__ void query_step(const Smem& sm, Acc* dq, int r0, int lane) {
+  product_abt(sm.s + r0 * kRows, sm.own_a + r0 * kDh, sm.in_a);   // S = Q K^T
+  product_abt(sm.dp + r0 * kRows, sm.own_b + r0 * kDh, sm.in_b);  // dP = dO V^T
+  __syncwarp();
+  softmax_grad<false>(sm, r0, lane);
+  accumulate_ab(dq, sm.ds + r0 * kRows, sm.in_a);                 // dQ += dS K
+}
+
+__device__ void query_frame(const Smem& sm, Acc* dq, const bf16* k, const bf16* v, int r0,
+                            int lane) {
+  __syncthreads();  // every warp is done with the previous frame
+  load_tile(sm.in_a, k);
+  load_tile(sm.in_b, v);
+  __syncthreads();
+  query_step(sm, dq, r0, lane);
+}
+
+// Key block: one streamed query frame into the warp's 16 key rows of dK/dV.
+// own_a holds K, own_b V; q, dout, o are the query frame's tiles.
+__device__ void key_frame(const Smem& sm, Acc* dk, Acc* dv, const bf16* q, const bf16* dout,
+                          const bf16* o, const float* lse, int r0, int lane) {
+  __syncthreads();  // every warp is done with the previous frame
+  load_tile(sm.in_a, q);
+  load_tile(sm.in_b, dout);
+  load_query_state(sm, o, lse, sm.in_b);
+  product_abt(sm.s + r0 * kRows, sm.own_a + r0 * kDh, sm.in_a);   // S^T = K Q^T
+  product_abt(sm.dp + r0 * kRows, sm.own_b + r0 * kDh, sm.in_b);  // dP^T = V dO^T
+  __syncwarp();
+  softmax_grad<true>(sm, r0, lane);
+  accumulate_ab(dv, sm.p + r0 * kRows, sm.in_b);                  // dV += W^T dO
+  accumulate_ab(dk, sm.ds + r0 * kRows, sm.in_a);                 // dK += dS^T Q
+}
+
+// q, k, v, o, dout, dq, dk, dv: [BH, T*64, 64]; lse: [BH, T*64].
+// grid (T, 2*BH): y < BH are key blocks (row y, key frame x), the rest query
+// blocks (row y - BH, query frame x).
+__global__ void __launch_bounds__(kThreads)
+block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        bf16* __restrict__ dq, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int bh, int frames) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(smem);
+  const int r0 = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32;
+  const bool key_block = blockIdx.y < bh;
+  const int row = key_block ? blockIdx.y : blockIdx.y - bh;
+  const int f = blockIdx.x;
+  const size_t base = (size_t)row * frames * kTile;
+  const size_t own = base + (size_t)f * kTile;
+  const float* lse_row = lse + (size_t)row * frames * kRows;
+
+  if (key_block) {
+    Acc acc_k[kDh / 16], acc_v[kDh / 16];
+    zero(acc_k);
+    zero(acc_v);
+    load_tile(sm.own_a, k + own);
+    load_tile(sm.own_b, v + own);
+    for (int t = f; t < frames; ++t) {
+      const size_t at = base + (size_t)t * kTile;
+      key_frame(sm, acc_k, acc_v, q + at, dout + at, o + at, lse_row + t * kRows, r0, lane);
+    }
+    store_rows(acc_k, sm.s, dk + own, r0, lane);
+    store_rows(acc_v, sm.dp, dv + own, r0, lane);
+    return;
+  }
+  Acc acc_q[kDh / 16];
+  zero(acc_q);
+  load_tile(sm.own_a, q + own);
+  load_tile(sm.own_b, dout + own);
+  load_query_state(sm, o + own, lse_row + f * kRows, sm.own_b);
+  for (int t = 0; t <= f; ++t)
+    query_frame(sm, acc_q, k + base + (size_t)t * kTile, v + base + (size_t)t * kTile, r0,
+                lane);
+  store_rows(acc_q, sm.s, dq + own, r0, lane);
+}
+
+// q, kb, vb, o, dout, dq, dkb, dvb: [G, T*64, 64]; lse: [G, T*64];
+// k0, v0, dk0, dv0: [BH0, T*64, 64], shared by the S = G / BH0 branches
+// (branch g reads row g % BH0). grid (T, BH0 + G): y < BH0 are key blocks of
+// K0/V0 (row y, key frame x), the rest query blocks (branch row y - BH0,
+// query frame x).
+__global__ void __launch_bounds__(kThreads)
+branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
+                  const bf16* __restrict__ v0, const bf16* __restrict__ kb,
+                  const bf16* __restrict__ vb, const bf16* __restrict__ o,
+                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                  bf16* __restrict__ dq, bf16* __restrict__ dk0, bf16* __restrict__ dv0,
+                  bf16* __restrict__ dkb, bf16* __restrict__ dvb, int g_rows, int bh0,
+                  int frames) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Smem sm = carve(smem);
+  const int r0 = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32;
+  const int f = blockIdx.x;
+
+  if (blockIdx.y < bh0) {  // key block: K0/V0 frame f of row blockIdx.y
+    const size_t own0 = ((size_t)blockIdx.y * frames + f) * kTile;
+    Acc acc_k[kDh / 16], acc_v[kDh / 16];
+    zero(acc_k);
+    zero(acc_v);
+    load_tile(sm.own_a, k0 + own0);
+    load_tile(sm.own_b, v0 + own0);
+    for (int g = blockIdx.y; g < g_rows; g += bh0)  // every branch of this row
+      for (int t = f + 1; t < frames; ++t) {
+        const size_t at = ((size_t)g * frames + t) * kTile;
+        key_frame(sm, acc_k, acc_v, q + at, dout + at, o + at, lse + at / kDh, r0, lane);
+      }
+    store_rows(acc_k, sm.s, dk0 + own0, r0, lane);
+    store_rows(acc_v, sm.dp, dv0 + own0, r0, lane);
+    return;
+  }
+  const int g = blockIdx.y - bh0;
+  const size_t own = ((size_t)g * frames + f) * kTile;
+  const size_t base0 = (size_t)(g % bh0) * frames * kTile;
+  Acc acc[kDh / 16];
+  zero(acc);
+  load_tile(sm.own_a, q + own);
+  load_tile(sm.own_b, dout + own);
+  load_query_state(sm, o + own, lse + own / kDh, sm.own_b);
+  for (int t = 0; t < f; ++t)
+    query_frame(sm, acc, k0 + base0 + (size_t)t * kTile, v0 + base0 + (size_t)t * kTile, r0,
+                lane);
+  query_frame(sm, acc, kb + own, vb + own, r0, lane);  // the own frame, last
+  store_rows(acc, sm.s, dq + own, r0, lane);
+  __syncthreads();  // every warp's rows of p and ds (the own frame's) are written
+  zero(acc);
+  accumulate_atb(acc, sm.ds, r0, sm.own_a);  // dKb = dS^T Q, the warp's 16 keys
+  store_rows(acc, sm.s, dkb + own, r0, lane);
+  zero(acc);
+  accumulate_atb(acc, sm.p, r0, sm.own_b);   // dVb = W^T dO
+  store_rows(acc, sm.dp, dvb + own, r0, lane);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each launches on the given stream,
+// does not synchronise, and returns cudaGetLastError() of the launch.
+extern "C" int block_causal_attention_bwd(const void* q, const void* k, const void* v,
+                                          const void* o, const void* dout, const void* lse,
+                                          void* dq, void* dk, void* dv, int bh, int frames,
+                                          void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      block_causal_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  block_causal_bwd_kernel<<<dim3(frames, 2 * bh), kThreads, kSmemBytes,
+                            (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, bh, frames);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int branch_attention_bwd(const void* q, const void* k0, const void* v0,
+                                    const void* kb, const void* vb, const void* o,
+                                    const void* dout, const void* lse, void* dq, void* dk0,
+                                    void* dv0, void* dkb, void* dvb, int g, int bh0,
+                                    int frames, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      branch_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  branch_bwd_kernel<<<dim3(frames, bh0 + g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
+      (const bf16*)o, (const bf16*)dout, (const float*)lse, (bf16*)dq, (bf16*)dk0,
+      (bf16*)dv0, (bf16*)dkb, (bf16*)dvb, g, bh0, frames);
+  return (int)cudaGetLastError();
+}

@@ -37,12 +37,6 @@ def init_cache(config, batch_size, max_frames, dtype=torch.float32, device=None)
                    torch.zeros(shape, dtype=dtype, device=device), 0, (g, g))
 
 
-def _pose_embed(model, poses):
-    """The f32 pose MLP over [..., 7] cameras -> [..., d]."""
-    xyz = poses[..., :3] * model.config.pose_multiplier
-    return model.pose_embedding(torch.cat([xyz, poses[..., 3:]], -1).float())
-
-
 def _block_incremental(block, H, x, cache_k, cache_v, n):
     """One block over one frame x [B, L, d] against one layer's cache
     [B, H, F, L, dh] (frames < n valid). Returns the new x."""
@@ -69,7 +63,7 @@ def prefill_cache(model, tokens, poses, valid_frames=None):
     L, H, d = math.prod(grid), cfg.n_head, cfg.d_model
     dh = d // H
     wte = model.wte.weight
-    x = wte[tokens.reshape(B, T, L)] + model.wpe[:L] + _pose_embed(model, poses)[:, :, None]
+    x = wte[tokens.reshape(B, T, L)] + model.wpe[:L] + model.embed_poses(poses)[:, :, None]
     x = x.to(wte.dtype).reshape(B, T * L, d)
 
     cache_k = torch.empty((cfg.n_layer, B, H, T, L, dh), dtype=wte.dtype, device=wte.device)
@@ -101,7 +95,7 @@ def generate_frame(model, cache, query_pose):
     cfg = model.config
     B, L = query_pose.shape[0], cache.k.shape[4]
     wte = model.wte.weight
-    x = wte[model.mask_token] + model.wpe[:L] + _pose_embed(model, query_pose)[:, None]
+    x = wte[model.mask_token] + model.wpe[:L] + model.embed_poses(query_pose)[:, None]
     x = _run_frame(model, cache, x.to(wte.dtype).expand(B, L, cfg.d_model))
     logits = x.float() @ wte[:cfg.n_embeddings].float().t()
     return logits.reshape((B,) + tuple(cache.grid) + (cfg.n_embeddings,))

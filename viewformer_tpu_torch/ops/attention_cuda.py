@@ -1,20 +1,25 @@
-"""Branching attention forward: hand-written CUDA kernels and their plain twins.
+"""Branching attention: hand-written CUDA kernels and their plain twins.
 
-Counterpart of viewformer_tpu/ops/attention_pallas.py for the serving path:
+Counterpart of viewformer_tpu/ops/attention_pallas.py without dropout:
 
   block_causal_attention_fwd  replaces _block_causal_kernel3 (kernel B1)
   branch_attention_fwd        replaces _branch_kernel3 (kernel B2), and the
                               dense _attend_cache of migt_incremental
+  block_causal_attention_bwd  replaces _block_causal_bwd_kernel3 (kernel B3)
+  branch_attention_bwd        replaces _branch_bwd_kernel3 and the sum over
+                              branches of _fb_bwd (kernel B4)
 
 Operands keep the Pallas layout, [batch*heads, frames*L, dh]. No 1/sqrt(dh)
 scale, f32 scores and softmax, weights rounded to the value dtype before the
-product with V (the reference's conventions).
+product with V (the reference's conventions). The forward kernels can also
+return each query row's f32 log-sum-exp, which the backward kernels
+recompute the softmax weights from.
 
 Each public function dispatches on where its tensors lie: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (built from
-csrc/branching_attention.cu on first use) or raises. There is no fallback
-from the kernel to the plain version. Each wrapper counts its kernel launches
-in its ``launches`` attribute.
+csrc/*.cu on first use) or raises. There is no fallback from the kernel to
+the plain version. Each wrapper counts its kernel launches in its
+``launches`` attribute.
 """
 import ctypes
 import hashlib
@@ -25,51 +30,135 @@ import subprocess
 import torch
 
 _NEG_INF = -1e9
-_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                     'csrc', 'branching_attention.cu')
-_BUILD_DIR = os.path.join(os.path.dirname(_CSRC), 'build')
+_CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
+_BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
+# each source is one shared library; the header is compiled into both
+_SOURCES = ('branching_attention.cu', 'branching_attention_bwd.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
-_lib = None
+_functions = None
 
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (the reference the kernels are held against)
 # ---------------------------------------------------------------------------
 
-def block_causal_attention_plain(q, k, v, L):
+def _wide(x):
+    """x in at least f32: scores and softmax are f32 for bf16 operands, and
+    a float64 input (gradcheck) stays float64."""
+    return x if x.dtype in (torch.float32, torch.float64) else x.float()
+
+
+def _round(x, dtype):
+    """x rounded to dtype and kept in its own (wide) dtype: the reference
+    rounds dS and W to the operand dtype before a product with f32
+    accumulation."""
+    return x.to(dtype).to(x.dtype)
+
+
+def block_causal_attention_plain(q, k, v, L, return_lse=False):
     """q/k/v [BH, T*L, dh] -> [BH, T*L, dh]; a query in frame t attends every
-    key of frames <= t."""
+    key of frames <= t. With return_lse, also each row's log-sum-exp of its
+    scores, [BH, T*L] in f32 (or wider)."""
     TL = q.shape[1]
     frames = torch.arange(TL, device=q.device) // L
     allowed = frames[:, None] >= frames[None, :]
-    scores = torch.einsum('bqd,bkd->bqk', q.float(), k.float())
+    scores = torch.einsum('bqd,bkd->bqk', _wide(q), _wide(k))
     scores = scores.masked_fill(~allowed, _NEG_INF)
     weights = torch.softmax(scores, -1)
-    return torch.einsum('bqk,bkd->bqd', weights.to(v.dtype), v).to(q.dtype)
+    out = torch.einsum('bqk,bkd->bqd', weights.to(v.dtype), v).to(q.dtype)
+    return (out, torch.logsumexp(scores, -1)) if return_lse else out
 
 
-def branch_attention_plain(q, k0, v0, kb, vb, L, first_q_frame, n_old):
+def branch_attention_plain(q, k0, v0, kb, vb, L, first_q_frame, n_old, return_lse=False):
     """q/kb/vb [G, TQ*L, dh]; k0/v0 [BH0, F0*L, dh], shared by the G/BH0
     branches (branch g reads row g % BH0). Query row r lies in frame
     first_q_frame + r // L; it attends the stream-0 frames below
     min(that frame, n_old) and the kb/vb rows of its own frame, under one
-    joint softmax."""
+    joint softmax. With return_lse, also each row's log-sum-exp of its joint
+    scores, [G, TQ*L]."""
     G, TQL, dh = q.shape
     BH0, F0L, _ = k0.shape
     TQ, S = TQL // L, G // BH0
-    qf = q.float().reshape(S, BH0, TQ, L, dh)
+    qf = _wide(q).reshape(S, BH0, TQ, L, dh)
     kbf = kb.reshape(S, BH0, TQ, L, dh)
     vbf = vb.reshape(S, BH0, TQ, L, dh)
     q_frame = first_q_frame + torch.arange(TQ, device=q.device)
     k_frame = torch.arange(F0L, device=q.device) // L
     allowed = k_frame[None, :] < torch.clamp(q_frame, max=n_old)[:, None]  # [TQ, F0L]
-    scores_old = torch.einsum('sbtld,bkd->sbtlk', qf, k0.float())
+    scores_old = torch.einsum('sbtld,bkd->sbtlk', qf, _wide(k0))
     scores_old = scores_old.masked_fill(~allowed[:, None, :], _NEG_INF)
-    scores_new = torch.einsum('sbtld,sbtmd->sbtlm', qf, kbf.float())
-    weights = torch.softmax(torch.cat([scores_old, scores_new], -1), -1)
+    scores_new = torch.einsum('sbtld,sbtmd->sbtlm', qf, _wide(kbf))
+    joint = torch.cat([scores_old, scores_new], -1)
+    weights = torch.softmax(joint, -1)
     out = torch.einsum('sbtlk,bkd->sbtld', weights[..., :F0L].to(v0.dtype), v0)
     out = out + torch.einsum('sbtlm,sbtmd->sbtld', weights[..., F0L:].to(vb.dtype), vbf)
-    return out.reshape(G, TQL, dh).to(q.dtype)
+    out = out.reshape(G, TQL, dh).to(q.dtype)
+    return (out, torch.logsumexp(joint, -1).reshape(G, TQL)) if return_lse else out
+
+
+def block_causal_attention_bwd_plain(q, k, v, dout, L):
+    """(dq, dk, dv) of block_causal_attention_plain for the output gradient
+    dout, as the reference's backward kernel computes them
+    (attention_pallas.py:138-179): W recomputed in f32, dP = dO V^T,
+    dS = W (dP - rowsum(dP W)), dS and W rounded to the operand dtype before
+    dQ = dS K, dK = dS^T Q, dV = W^T dO, f32 accumulation."""
+    TL = q.shape[1]
+    frames = torch.arange(TL, device=q.device) // L
+    allowed = frames[:, None] >= frames[None, :]
+    qf, kf, vf, df = (_wide(x) for x in (q, k, v, dout))
+    scores = torch.einsum('bqd,bkd->bqk', qf, kf).masked_fill_(~allowed, _NEG_INF)
+    w = torch.softmax(scores, -1)
+    del scores
+    ds = torch.einsum('bqd,bkd->bqk', df, vf)
+    ds = _round(ds.sub_((ds * w).sum(-1, keepdim=True)).mul_(w), k.dtype)
+    dq = torch.einsum('bqk,bkd->bqd', ds, kf).to(q.dtype)
+    dk = torch.einsum('bqk,bqd->bkd', ds, qf).to(k.dtype)
+    del ds
+    dv = torch.einsum('bqk,bqd->bkd', _round(w, dout.dtype), df).to(v.dtype)
+    return dq, dk, dv
+
+
+def branch_attention_bwd_plain(q, k0, v0, kb, vb, dout, L):
+    """(dq, dk0, dv0, dkb, dvb) of the one-shot branch_attention_plain
+    (first_q_frame=0, n_old=T) for the output gradient dout, as the
+    reference's backward kernel computes them (attention_pallas.py:182-237):
+    one rowsum over both key sets of the joint softmax. dk0/dv0 [BH0, T*L, dh]
+    are summed over the S branches that share each row, in f32 before the
+    cast (attention_pallas.py:630-631). One branch at a time, to bound the
+    f32 temporaries."""
+    G, TL, dh = q.shape
+    BH0 = k0.shape[0]
+    T, S = TL // L, G // BH0
+    k_frame = torch.arange(TL, device=q.device) // L
+    allowed = k_frame[None, :] < torch.arange(T, device=q.device)[:, None]  # [T, TL]
+    k0f, v0f = _wide(k0), _wide(v0)
+    dk0 = dv0 = 0
+    grads = []
+    for s in range(S):
+        rows = slice(s * BH0, (s + 1) * BH0)
+        qf, kbf, vbf, df = (_wide(x[rows]).reshape(BH0, T, L, dh) for x in (q, kb, vb, dout))
+        w_old = torch.einsum('btld,bkd->btlk', qf, k0f).masked_fill_(~allowed[:, None], _NEG_INF)
+        w_new = torch.einsum('btld,btmd->btlm', qf, kbf)
+        lse = torch.logaddexp(w_old.logsumexp(-1), w_new.logsumexp(-1))[..., None]
+        w_old.sub_(lse).exp_()
+        w_new.sub_(lse).exp_()
+        ds_old = torch.einsum('btld,bkd->btlk', df, v0f)
+        ds_new = torch.einsum('btld,btmd->btlm', df, vbf)
+        rowsum = (ds_old * w_old).sum(-1, keepdim=True) + (ds_new * w_new).sum(-1, keepdim=True)
+        ds_old = _round(ds_old.sub_(rowsum).mul_(w_old), k0.dtype)
+        ds_new = _round(ds_new.sub_(rowsum).mul_(w_new), kb.dtype)
+        dq = torch.einsum('btlk,bkd->btld', ds_old, k0f) + \
+            torch.einsum('btlm,btmd->btld', ds_new, kbf)
+        dk0 = dk0 + torch.einsum('btlk,btld->bkd', ds_old, qf)
+        del ds_old
+        dv0 = dv0 + torch.einsum('btlk,btld->bkd', _round(w_old, dout.dtype), df)
+        del w_old
+        dkb = torch.einsum('btlm,btld->btmd', ds_new, qf)
+        dvb = torch.einsum('btlm,btld->btmd', _round(w_new, dout.dtype), df)
+        grads.append((dq, dkb, dvb))
+    dq, dkb, dvb = (torch.cat([g[i].reshape(BH0, TL, dh) for g in grads]) for i in range(3))
+    return (dq.to(q.dtype), dk0.to(k0.dtype), dv0.to(v0.dtype), dkb.to(kb.dtype),
+            dvb.to(vb.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -88,45 +177,79 @@ def _nvcc():
     return path
 
 
+def _digest():
+    """Hash of every source and header under csrc/: an edit to any of them
+    rebuilds every library."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(_CSRC_DIR)):
+        if name.endswith(('.cu', '.cuh')):
+            h.update(name.encode())
+            with open(os.path.join(_CSRC_DIR, name), 'rb') as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build():
-    """Compile csrc/branching_attention.cu for sm_90a (once per source hash)
-    and return the path of the shared library. The ptxas report of the build
-    is kept beside it, in a .log file."""
-    with open(_CSRC, 'rb') as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f'libbranching_attention-{digest}.so')
-    if os.path.exists(lib_path):
-        return lib_path
+    """Compile each csrc source into its own shared library for sm_90a, one
+    nvcc for each, all started together; once per hash of the sources.
+    Returns {source: library path}. The ptxas report (registers, shared
+    memory, spills) of each build is kept beside it, in a .log file."""
+    digest = _digest()
+    libs = {src: os.path.join(_BUILD_DIR, f'lib{src[:-3]}-{digest}.so') for src in _SOURCES}
+    todo = [src for src in _SOURCES if not os.path.exists(libs[src])]
+    if not todo:
+        return libs
     os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f'{lib_path}.{os.getpid()}.tmp'
-    cmd = [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-           '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o', tmp, _CSRC]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}')
-    with open(lib_path[:-3] + '.log', 'w') as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
-    return lib_path
+    nvcc, jobs = _nvcc(), []
+    for src in todo:
+        tmp = f'{libs[src]}.{os.getpid()}.tmp'
+        log = open(libs[src][:-3] + '.log', 'w')
+        cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v', '-o', tmp,
+               os.path.join(_CSRC_DIR, src)]
+        jobs.append((src, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for src, tmp, log, proc in jobs:
+        proc.wait()
+        log.close()
+        if proc.returncode != 0:
+            with open(log.name) as f:
+                failed.append(f'{src}: nvcc exited {proc.returncode}\n{f.read()}')
+        else:
+            os.replace(tmp, libs[src])
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    return libs
 
 
 def build_log():
-    """The ptxas report (registers, shared memory, spills) of the built library."""
-    with open(build()[:-3] + '.log') as f:
-        return f.read()
+    """The ptxas reports of the built libraries."""
+    text = []
+    for src, path in build().items():
+        with open(path[:-3] + '.log') as f:
+            text.append(f'{src}:\n{f.read()}')
+    return '\n'.join(text)
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
+def _kernels():
+    """The libraries' C entry points by name, bound once."""
+    global _functions
+    if _functions is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.block_causal_attention_fwd.argtypes = [p, p, p, p, i, i, p]
-        lib.block_causal_attention_fwd.restype = i
-        lib.branch_attention_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
-        lib.branch_attention_fwd.restype = i
-        _lib = lib
-    return _lib
+        signatures = {
+            'block_causal_attention_fwd': [p] * 5 + [i] * 2 + [p],
+            'branch_attention_fwd': [p] * 7 + [i] * 6 + [p],
+            'block_causal_attention_bwd': [p] * 9 + [i] * 2 + [p],
+            'branch_attention_bwd': [p] * 13 + [i] * 3 + [p],
+        }
+        libs = [ctypes.CDLL(path) for path in build().values()]
+        functions = {}
+        for name, argtypes in signatures.items():
+            fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
+            fn.argtypes, fn.restype = argtypes, i
+            functions[name] = fn
+        _functions = functions
+    return _functions
 
 
 def _check_operands(name, L, *tensors):
@@ -147,48 +270,67 @@ def _check_operands(name, L, *tensors):
         raise ValueError(f'{name}: the kernel is built for L={_TILE}, got L={L}')
 
 
-def _launch(fn, *args):
-    err = fn(*args)
+def _check_lse(name, lse, rows, device):
+    if (lse.device != device or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or tuple(lse.shape) != tuple(rows)):
+        raise ValueError(f'{name}: lse must be contiguous f32 {tuple(rows)} on {device}, got '
+                         f'{lse.dtype} {tuple(lse.shape)} on {lse.device}')
+
+
+def _launch(name, *args):
+    err = _kernels()[name](*args)
     if err != 0:
-        raise RuntimeError(f'{fn.__name__} launch failed: CUDA error {err}')
+        raise RuntimeError(f'{name} launch failed: CUDA error {err}')
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _on_device(name, q):
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); raises for any other device."""
+    if q.device.type == 'cpu':
+        return False
+    if q.device.type != 'cuda':
+        raise ValueError(f'{name}: no kernel for {q.device}')
+    return True
 
 
 # ---------------------------------------------------------------------------
 # Public dispatch
 # ---------------------------------------------------------------------------
 
-def block_causal_attention_fwd(q, k, v, L):
-    """Kernel B1: q/k/v [BH, T*L, dh] -> [BH, T*L, dh] (see
-    block_causal_attention_plain)."""
-    if q.device.type == 'cpu':
-        return block_causal_attention_plain(q, k, v, L)
-    if q.device.type != 'cuda':
-        raise ValueError(f'block_causal_attention_fwd: no kernel for {q.device}')
+def block_causal_attention_fwd(q, k, v, L, return_lse=False):
+    """Kernel B1: q/k/v [BH, T*L, dh] -> [BH, T*L, dh], and with return_lse
+    also the f32 row log-sum-exp [BH, T*L] (see block_causal_attention_plain)."""
+    if not _on_device('block_causal_attention_fwd', q):
+        return block_causal_attention_plain(q, k, v, L, return_lse)
     _check_operands('block_causal_attention_fwd', L, q, k, v)
     BH, TL, _ = q.shape
     if k.shape != q.shape or v.shape != q.shape or TL % L or BH > 65535:
         raise ValueError(f'block_causal_attention_fwd: shapes {tuple(q.shape)}, '
                          f'{tuple(k.shape)}, {tuple(v.shape)}')
     out = torch.empty_like(q)
+    lse = torch.empty((BH, TL), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(_library().block_causal_attention_fwd, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), BH, TL // L, stream)
+        _launch('block_causal_attention_fwd', q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), _ptr(lse), BH, TL // L, stream)
     block_causal_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-def branch_attention_fwd(q, k0, v0, kb, vb, L, first_q_frame, n_old):
-    """Kernel B2: q/kb/vb [G, TQ*L, dh], k0/v0 [BH0, F0*L, dh] -> [G, TQ*L, dh]
-    (see branch_attention_plain). first_q_frame and n_old are host ints.
+def branch_attention_fwd(q, k0, v0, kb, vb, L, first_q_frame, n_old, return_lse=False):
+    """Kernel B2: q/kb/vb [G, TQ*L, dh], k0/v0 [BH0, F0*L, dh] -> [G, TQ*L, dh],
+    and with return_lse also the f32 row log-sum-exp [G, TQ*L] (see
+    branch_attention_plain). first_q_frame and n_old are host ints.
 
     first_q_frame=0, n_old=T is the one-shot branch attention of
     _branch_kernel3; one query frame with first_q_frame=n_old=n over a cache
     layer viewed as [B*H, F*L, dh] is _attend_cache."""
-    if q.device.type == 'cpu':
-        return branch_attention_plain(q, k0, v0, kb, vb, L, first_q_frame, n_old)
-    if q.device.type != 'cuda':
-        raise ValueError(f'branch_attention_fwd: no kernel for {q.device}')
+    if not _on_device('branch_attention_fwd', q):
+        return branch_attention_plain(q, k0, v0, kb, vb, L, first_q_frame, n_old, return_lse)
     _check_operands('branch_attention_fwd', L, q, k0, v0, kb, vb)
     G, TQL, _ = q.shape
     BH0, F0L, _ = k0.shape
@@ -200,20 +342,77 @@ def branch_attention_fwd(q, k0, v0, kb, vb, L, first_q_frame, n_old):
             f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)} with '
             f'first_q_frame={first_q_frame}, n_old={n_old}')
     out = torch.empty_like(q)
+    lse = torch.empty((G, TQL), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch(_library().branch_attention_fwd, q.data_ptr(), k0.data_ptr(),
-                v0.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), G,
-                TQL // L, BH0, F0L // L, int(first_q_frame), int(n_old), stream)
+        _launch('branch_attention_fwd', q.data_ptr(), k0.data_ptr(), v0.data_ptr(),
+                kb.data_ptr(), vb.data_ptr(), out.data_ptr(), _ptr(lse), G, TQL // L, BH0,
+                F0L // L, int(first_q_frame), int(n_old), stream)
     branch_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
-block_causal_attention_fwd.launches = 0
-branch_attention_fwd.launches = 0
-KERNELS = (block_causal_attention_fwd, branch_attention_fwd)
+def block_causal_attention_bwd(q, k, v, out, dout, lse, L):
+    """Kernel B3: (dq, dk, dv) of block_causal_attention_fwd at output `out`
+    with row log-sum-exp `lse` (both from the forward), for the output
+    gradient dout; all [BH, T*L, dh] (see block_causal_attention_bwd_plain,
+    which needs neither out nor lse)."""
+    if not _on_device('block_causal_attention_bwd', q):
+        return block_causal_attention_bwd_plain(q, k, v, dout, L)
+    _check_operands('block_causal_attention_bwd', L, q, k, v, out, dout)
+    BH, TL, _ = q.shape
+    if any(t.shape != q.shape for t in (k, v, out, dout)) or TL % L or 2 * BH > 65535:
+        raise ValueError(f'block_causal_attention_bwd: shapes q {tuple(q.shape)}, '
+                         f'k {tuple(k.shape)}, v {tuple(v.shape)}, out {tuple(out.shape)}, '
+                         f'dout {tuple(dout.shape)}')
+    _check_lse('block_causal_attention_bwd', lse, (BH, TL), q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch('block_causal_attention_bwd', *(t.data_ptr() for t in
+                                                (q, k, v, out, dout, lse, dq, dk, dv)),
+                BH, TL // L, stream)
+    block_causal_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def branch_attention_bwd(q, k0, v0, kb, vb, out, dout, lse, L):
+    """Kernel B4: (dq, dk0, dv0, dkb, dvb) of the one-shot
+    branch_attention_fwd (first_q_frame=0, n_old=T) at output `out` with row
+    log-sum-exp `lse`, for the output gradient dout. q/kb/vb/out/dout
+    [G, T*L, dh]; k0/v0 [BH0, T*L, dh]; dk0/dv0 are summed over the G/BH0
+    branches that share each row (see branch_attention_bwd_plain)."""
+    if not _on_device('branch_attention_bwd', q):
+        return branch_attention_bwd_plain(q, k0, v0, kb, vb, dout, L)
+    _check_operands('branch_attention_bwd', L, q, k0, v0, kb, vb, out, dout)
+    G, TL, _ = q.shape
+    BH0 = k0.shape[0]
+    if (any(t.shape != q.shape for t in (kb, vb, out, dout)) or v0.shape != k0.shape
+            or k0.shape[1] != TL or TL % L or G % BH0 or G + BH0 > 65535):
+        raise ValueError(
+            f'branch_attention_bwd: shapes q {tuple(q.shape)}, k0 {tuple(k0.shape)}, '
+            f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)}, '
+            f'out {tuple(out.shape)}, dout {tuple(dout.shape)}')
+    _check_lse('branch_attention_bwd', lse, (G, TL), q.device)
+    dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
+    dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch('branch_attention_bwd', *(t.data_ptr() for t in
+                                          (q, k0, v0, kb, vb, out, dout, lse, dq, dk0, dv0,
+                                           dkb, dvb)),
+                G, BH0, TL // L, stream)
+    branch_attention_bwd.launches += 1
+    return dq, dk0, dv0, dkb, dvb
+
+
+KERNELS = (block_causal_attention_fwd, branch_attention_fwd, block_causal_attention_bwd,
+           branch_attention_bwd)
 
 
 def reset_launch_counts():
     for fn in KERNELS:
         fn.launches = 0
+
+
+reset_launch_counts()

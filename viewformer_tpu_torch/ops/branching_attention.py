@@ -8,7 +8,10 @@ reference's checkpoints are trained without it).
 
 `block_causal_attention` and `branch_attention` are the plain versions at the
 model's layout; `multi_end_block_attention` is the dispatch the model calls,
-which runs the CUDA kernels on the card (ops/attention_cuda.py).
+which runs the CUDA kernels on the card (ops/attention_cuda.py). Where a
+gradient is wanted it goes through the autograd Functions BlockCausalAttention
+and BranchAttention: forward kernels B1/B2 with the row log-sum-exp, backward
+kernels B3/B4.
 """
 import torch
 
@@ -33,18 +36,82 @@ def branch_attention(q_branches, k0, v0, k_branches, v_branches):
     return out.reshape(q_branches.shape)
 
 
-def multi_end_block_attention(kset, vset, qset):
+class BlockCausalAttention(torch.autograd.Function):
+    """Stream-0 attention with its backward: q/k/v [BH, T*L, dh] ->
+    [BH, T*L, dh]. Forward kernel B1 (with the row log-sum-exp), backward
+    kernel B3; the plain twins on CPU tensors. Counterpart of
+    fused_block_causal_attention (attention_pallas.py:565-591). Saves the
+    inputs, the output and the log-sum-exp; no score tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, L):
+        out, lse = attention_cuda.block_causal_attention_fwd(q, k, v, L, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.L = L
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = attention_cuda.block_causal_attention_bwd(q, k, v, out, dout.contiguous(),
+                                                          lse, ctx.L)
+        return grads + (None,)
+
+
+class BranchAttention(torch.autograd.Function):
+    """One-shot side-stream attention with its backward: q/kb/vb
+    [S*BH, T*L, dh], k0/v0 [BH, T*L, dh] shared by the S branches (branch g
+    reads row g % BH, no broadcast copy) -> [S*BH, T*L, dh]. Forward kernel
+    B2 (first_q_frame=0, n_old=T, with the row log-sum-exp), backward kernel
+    B4, which returns dk0/dv0 already summed over the branches. Counterpart
+    of fused_branch_attention (attention_pallas.py:594-636)."""
+
+    @staticmethod
+    def forward(ctx, q, k0, v0, kb, vb, L):
+        T = q.shape[1] // L
+        out, lse = attention_cuda.branch_attention_fwd(q, k0, v0, kb, vb, L, 0, T,
+                                                       return_lse=True)
+        ctx.save_for_backward(q, k0, v0, kb, vb, out, lse)
+        ctx.L = L
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k0, v0, kb, vb, out, lse = ctx.saved_tensors
+        grads = attention_cuda.branch_attention_bwd(q, k0, v0, kb, vb, out,
+                                                    dout.contiguous(), lse, ctx.L)
+        return grads + (None,)
+
+
+def multi_end_block_attention(kset, vset, qset, dropout_rate=0.0):
     """Full branching attention over a tuple of streams, stream 0 first, each
-    [B, H, T, L, dh]. Returns a tuple of per-stream outputs."""
+    [B, H, T, L, dh]. Returns a tuple of per-stream outputs.
+
+    When autograd records (grad mode on and an operand requires grad), the
+    streams go through BlockCausalAttention and BranchAttention; otherwise
+    through the forward kernels alone, with no log-sum-exp. Attention
+    dropout is not ported: dropout_rate > 0 raises."""
+    if dropout_rate > 0:
+        raise NotImplementedError(
+            f'attention dropout (rate {dropout_rate}) is not ported: it needs the '
+            'in-kernel hash-dropout kernels B5-B8 (attention_pallas.py:331-441). '
+            'Train with dropout=0.0.')
     B, H, T, L, dh = qset[0].shape
     r0 = lambda x: x.reshape(B * H, T * L, dh).contiguous()  # noqa: E731
     k0, v0 = r0(kset[0]), r0(vset[0])
-    outputs = (attention_cuda.block_causal_attention_fwd(r0(qset[0]), k0, v0, L)
-               .reshape(B, H, T, L, dh),)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in qset + kset + vset):
+        causal = lambda q: BlockCausalAttention.apply(q, k0, v0, L)  # noqa: E731
+        branch = lambda q, kb, vb: BranchAttention.apply(q, k0, v0, kb, vb, L)  # noqa: E731
+    else:
+        causal = lambda q: attention_cuda.block_causal_attention_fwd(q, k0, v0, L)  # noqa: E731
+        branch = lambda q, kb, vb: attention_cuda.branch_attention_fwd(  # noqa: E731
+            q, k0, v0, kb, vb, L, 0, T)
+    outputs = (causal(r0(qset[0])).reshape(B, H, T, L, dh),)
     if len(qset) > 1:
         S = len(qset) - 1
         rb = lambda xs: torch.stack(xs, 0).reshape(S * B * H, T * L, dh)  # noqa: E731
-        outs = attention_cuda.branch_attention_fwd(
-            rb(qset[1:]), k0, v0, rb(kset[1:]), rb(vset[1:]), L, 0, T)
+        outs = branch(rb(qset[1:]), rb(kset[1:]), rb(vset[1:]))
         outputs = outputs + tuple(outs.reshape(S, B, H, T, L, dh).unbind(0))
     return outputs

@@ -33,3 +33,16 @@ def quaternion_rotate(point, quaternion):
     point = quaternion_multiply(quaternion, point)
     point = quaternion_multiply(point, quaternion_conjugate(quaternion))
     return point[..., 1:]
+
+
+def make_quaternion(axis, angle):
+    """Rotation by angle [...] about the unit axis [3] -> [..., 4]."""
+    return torch.cat([torch.cos(angle / 2)[..., None], torch.sin(angle / 2)[..., None] * axis], -1)
+
+
+def make_quaternion_x(angle):
+    return make_quaternion(torch.tensor([1.0, 0.0, 0.0], dtype=angle.dtype), angle)
+
+
+def make_quaternion_y(angle):
+    return make_quaternion(torch.tensor([0.0, 1.0, 0.0], dtype=angle.dtype), angle)
