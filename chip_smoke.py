@@ -10,24 +10,33 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, with CUDA-event times of both: the forward kernels B1/B2
      at the serving shapes and, with their log-sum-exp output, at the
-     training shapes; the backward kernels B3/B4 at the training shapes;
+     training shapes; the backward kernels B3/B4 at the training shapes; the
+     dropout kernels B5-B8 at the training shapes (rate 0.1, fixed seed
+     words), then an exact probe of B5's and B7's dropout masks: with q = k
+     = 0 and V the identity on one key frame, the output's nonzeros are that
+     frame's keep bits, held bit for bit against the plain twins' mask;
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
      of the path was launched the expected number of times;
   4. one sequence through the port on the card (bf16, kernels) and on the CPU
      (f32, plain versions) with the same weights; checks the generate logits;
-  5. the full-width training path (MIGTConfig(dropout=0.0), f32 parameters,
-     bf16 compute, per-block remat) takes a warm-up step and 5 timed steps at
-     64 sequences x 20 frames through process_batch and the train step;
-     checks the losses and the exact launch counts of all four kernels;
+  5. the full-width training path (MIGTConfig(), the default recipe with
+     dropout 0.1; f32 parameters, bf16 compute, per-block remat) takes a
+     warm-up step and 5 timed steps at 64 sequences x 20 frames through
+     process_batch and the train step; checks the losses and the exact
+     launch counts of all eight kernels, and times one site of the
+     non-attention dropout; then the same at dropout 0.0 for 2 steps;
   6. one train step at full width on 2 sequences on the card (bf16, kernels)
-     and on the CPU (f32, plain versions) from the same weights and batch;
-     checks the loss and gradients, then that 3 steps move the parameters
-     the same way.
+     and on the CPU (f32, plain versions) from the same weights, batch and
+     dropout seeds; checks the loss and gradients, then that 3 steps move
+     the parameters the same way: at dropout 0.0 with 12 layers, and at
+     dropout 0.1 with 2 (the CPU's plain dropout twins hash every attention
+     weight in int64, ~15x the time of the plain attention).
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
+import dataclasses
 import json
 import os
 import statistics
@@ -41,8 +50,11 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 B, S, SIZE = 32, 20, 128
 N_REQUESTS = 3
-TRAIN_B, TRAIN_STEPS = 64, 5
+TRAIN_B, TRAIN_STEPS, TRAIN_STEPS_NO_DROPOUT = 64, 5, 2
 COMPARE_B = 2  # phase 6: the CPU's f32 step at full width is the slow part
+COMPARE_DROPOUT_LAYERS = 2  # phase 6 at dropout 0.1: every kernel, a sixth of the CPU time
+RATE = 0.1  # MIGTConfig().dropout
+WORDS = (0x9E3779B9, 12345)  # phase 2's dropout seed words
 
 # Phase 2: max|kernel - plain| / max|plain|, plain in f32 from the same bf16
 # inputs. The kernel rounds its output to bf16 (relative 2^-8 = 3.9e-3) and,
@@ -75,7 +87,10 @@ LSE_TOL = 1e-3
 TRAIN_LOSS_TOL = 5e-2
 GRAD_COSINE = 0.99
 UPDATE_COSINE = 0.95
-COMPARED = ('wte.weight', 'h.0.attn.c_attn.weight', 'h.11.mlp.c_fc.weight',
+
+
+def compared(n_layer):
+    return ('wte.weight', 'h.0.attn.c_attn.weight', f'h.{n_layer - 1}.mlp.c_fc.weight',
             'pose_criterion.pose_classifier.c_fc.weight',
             'pose_criterion.pose_classifier.c_proj.weight')
 
@@ -144,50 +159,65 @@ def kernel_checks(ac, log):
         del out, ref
     torch.cuda.empty_cache()
     results.update(training_kernel_checks(ac, rand, log))
+    dropout_probes(ac, log)
     return results
 
 
 def training_kernel_checks(ac, rand, log):
     """Phase 2 at the training path's shapes (B=64, T=20, L=64, dh=64,
-    H=12, S=2 branches): B1/B2 with the log-sum-exp, then B3/B4 from the
-    same bf16 inputs (out and lse from B1/B2) against their plain twins in
-    f32. Returns {backward kernel name: (max_abs_err, ms, plain_ms)}."""
+    H=12, S=2 branches): B1/B2 and B5/B7 (rate 0.1, seed words WORDS) with
+    the log-sum-exp, then B3/B4 and B6/B8 from the same bf16 inputs (out and
+    lse from the forward) against their plain twins in f32. Returns
+    {kernel name: (max_abs_err, ms, plain_ms)} for B3-B8."""
     BH, T, L = TRAIN_B * 12, 20, 64
     q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
     qb, kb, vb, doutb = (rand(2 * BH, T * L, 64) for _ in range(4))
+    drop = (L, WORDS, RATE)
     results = {}
     cases = [
-        ('block_causal_attention_fwd', ac.block_causal_attention_fwd,
-         ac.block_causal_attention_plain, (q, k, v), (L,),
-         ac.block_causal_attention_bwd, ac.block_causal_attention_bwd_plain, (dout,)),
-        ('branch_attention_fwd', ac.branch_attention_fwd, ac.branch_attention_plain,
-         (qb, k, v, kb, vb), (L, 0, T),
-         ac.branch_attention_bwd, ac.branch_attention_bwd_plain, (doutb,)),
+        (ac.block_causal_attention_fwd, ac.block_causal_attention_plain, (q, k, v), (L,),
+         ac.block_causal_attention_bwd, ac.block_causal_attention_bwd_plain, (dout,), (L,)),
+        (ac.branch_attention_fwd, ac.branch_attention_plain, (qb, k, v, kb, vb), (L, 0, T),
+         ac.branch_attention_bwd, ac.branch_attention_bwd_plain, (doutb,), (L,)),
+        (ac.block_causal_attention_dropout_fwd, ac.block_causal_attention_dropout_plain,
+         (q, k, v), drop, ac.block_causal_attention_dropout_bwd,
+         ac.block_causal_attention_dropout_bwd_plain, (dout,), drop),
+        (ac.branch_attention_dropout_fwd, ac.branch_attention_dropout_plain,
+         (qb, k, v, kb, vb), drop, ac.branch_attention_dropout_bwd,
+         ac.branch_attention_dropout_bwd_plain, (doutb,), drop),
     ]
-    for name, fwd, fwd_plain, inputs, args, bwd, bwd_plain, grads in cases:
+    for fwd, fwd_plain, inputs, args, bwd, bwd_plain, grads, bwd_args in cases:
+        name = fwd.__name__
         out, lse = fwd(*inputs, *args, return_lse=True)
         torch.cuda.synchronize()
         ref, ref_lse = fwd_plain(*(t.float() for t in inputs), *args, return_lse=True)
-        rel = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+        err = (out.float() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
         lse_err = (lse - ref_lse).abs().max().item()
+        del ref, ref_lse
+        ms = time_ms(lambda: fwd(*inputs, *args, return_lse=True))
+        plain_ms = time_ms(lambda: fwd_plain(*inputs, *args, return_lse=True), n=5)
         emit({'phase': 'kernel', 'name': name, 'form': 'training: with log-sum-exp',
-              'shapes': [list(t.shape) for t in inputs], 'rel_err': rel, 'tol': KERNEL_TOL,
-              'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL}, log)
+              'shapes': [list(t.shape) for t in inputs], 'max_abs_err': err, 'rel_err': rel,
+              'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL, 'ms': ms,
+              'plain_ms': plain_ms}, log)
+        check(torch.isfinite(out).all().item(), f'{name} (training): non-finite output')
         check(rel <= KERNEL_TOL, f'{name} (training): rel err {rel} > {KERNEL_TOL}')
         check(lse_err <= LSE_TOL, f'{name}: lse err {lse_err} > {LSE_TOL}')
-        del ref, ref_lse
+        if 'dropout' in name:
+            results[name] = [err, ms, plain_ms]
 
         bwd_name = bwd.__name__
-        kernel_grads = bwd(*inputs, out, *grads, lse, L)
+        kernel_grads = bwd(*inputs, out, *grads, lse, *bwd_args)
         torch.cuda.synchronize()
-        plain_grads = bwd_plain(*(t.float() for t in inputs + grads), L)
+        plain_grads = bwd_plain(*(t.float() for t in inputs + grads), *bwd_args)
         errs = [(g.float() - p).abs().max().item() for g, p in zip(kernel_grads, plain_grads)]
         rels = [e / p.abs().max().item() for e, p in zip(errs, plain_grads)]
         finite = all(torch.isfinite(g).all().item() for g in kernel_grads)
         del kernel_grads, plain_grads
         torch.cuda.empty_cache()
-        ms = time_ms(lambda: bwd(*inputs, out, *grads, lse, L))
-        plain_ms = time_ms(lambda: bwd_plain(*inputs, *grads, L), n=5)
+        ms = time_ms(lambda: bwd(*inputs, out, *grads, lse, *bwd_args))
+        plain_ms = time_ms(lambda: bwd_plain(*inputs, *grads, *bwd_args), n=5)
         emit({'phase': 'kernel', 'name': bwd_name, 'form': 'training backward',
               'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
               'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms}, log)
@@ -197,6 +227,70 @@ def training_kernel_checks(ac, rand, log):
         del out, lse
         torch.cuda.empty_cache()
     return results
+
+
+def dropout_probes(ac, log):
+    """Phase 2: the exact dropout masks of B5 and B7 at the training shapes.
+    With q = k = 0 every visited weight is the same, so with V the identity
+    on one key frame (0 elsewhere) output column j is nonzero iff that
+    frame's key j was kept: the output's nonzeros are the kernel's keep bits
+    for that frame. Held bit for bit against the plain twins' mask
+    (hash_keep over bc_weight_index / branch_weight_indices): B5 over every
+    key frame, B7 over every K0 frame and (vb the identity on every frame)
+    the own frames."""
+    from viewformer_tpu_torch.ops.dropout import hash_keep
+
+    BH, T, L = TRAIN_B * 12, 20, 64
+    TL, G = T * L, 2 * BH
+    zeros = lambda rows: torch.zeros(rows, TL, L, dtype=torch.bfloat16, device='cuda')  # noqa: E731
+    eye = torch.eye(L, dtype=torch.bfloat16, device='cuda')
+    frames = torch.arange(TL, device='cuda') // L
+
+    def frame_identity(rows, f):
+        x = zeros(rows)
+        x[:, f * L:(f + 1) * L] = eye
+        return x
+
+    def twin_mask(rows, index):  # bool keep mask of rows, in chunks of 16 rows
+        ids = torch.arange(rows, device='cuda')
+        return torch.cat([hash_keep(WORDS, index(ids[i:i + 16]), RATE) != 0
+                          for i in range(0, rows, 16)])
+
+    mismatches, kept = {}, {}
+    mask = twin_mask(BH, lambda ids: ac.bc_weight_index(ids, TL))  # [BH, TL, TL]
+    bad = 0
+    for f in range(T):
+        out = ac.block_causal_attention_dropout_fwd(zeros(BH), zeros(BH), frame_identity(BH, f),
+                                                    L, WORDS, RATE)
+        expected = mask[:, :, f * L:(f + 1) * L] & (frames >= f)[None, :, None]
+        bad += ((out != 0) != expected).sum().item()
+    mismatches['block_causal_attention_dropout_fwd'] = bad
+    kept['block_causal_attention_dropout_fwd'] = mask.float().mean().item()
+    del mask
+
+    mask = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[0])  # [G, TL, TL]
+    bad = 0
+    for f in range(T):
+        out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH), frame_identity(BH, f),
+                                              zeros(G), zeros(G), L, WORDS, RATE)
+        expected = mask[:, :, f * L:(f + 1) * L] & (frames > f)[None, :, None]
+        bad += ((out != 0) != expected).sum().item()
+    kept['branch_attention_dropout_fwd'] = mask.float().mean().item()
+    del mask
+    own = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[1])  # [G, T, L, L]
+    out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH), zeros(BH), zeros(G),
+                                          eye.repeat(T, 1).expand(G, TL, L).contiguous(),
+                                          L, WORDS, RATE)
+    bad_own = ((out.reshape(G, T, L, L) != 0) != own).sum().item()
+    mismatches['branch_attention_dropout_fwd'] = bad + bad_own
+    emit({'phase': 'dropout_mask_probe', 'rate': RATE, 'seed_words': WORDS,
+          'shapes': {'block_causal': [BH, TL, L], 'branch': [G, TL, L]},
+          'mismatched_bits': mismatches, 'branch_own_frame_mismatched_bits': bad_own,
+          'kept_share_of_all_weights': kept}, log)
+    for name, count in mismatches.items():
+        check(count == 0, f'{name}: {count} dropout mask bits differ from the plain twin')
+    del own, out
+    torch.cuda.empty_cache()
 
 
 def make_requests(n, seed):
@@ -237,9 +331,9 @@ def main_path(ac, models, log, card):
         check(len(np.unique(out['generated_codes'])) > 1, 'all generated codes are equal')
     launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
 
-    expected = {'block_causal_attention_fwd': N_REQUESTS * 11,
-                'branch_attention_fwd': N_REQUESTS * 24,
-                'block_causal_attention_bwd': 0, 'branch_attention_bwd': 0}
+    expected = {fn.__name__: 0 for fn in ac.KERNELS}
+    expected.update(block_causal_attention_fwd=N_REQUESTS * 11,
+                    branch_attention_fwd=N_REQUESTS * 24)
     stages = {stage: statistics.median(ms) for stage, ms in stage_ms.items()}
     emit({'phase': 'main_path', 'card': card, 'requests': N_REQUESTS,
           'batch': B, 'frames_per_sequence': S, 'image_size': SIZE,
@@ -310,7 +404,24 @@ def train_batch(n, seed, device):
             torch.from_numpy(np.stack(tokens)).to(device))
 
 
-def train_path(ac, config, log, card):
+def dropout_site_ms(model, n_streams):
+    """CUDA-event ms of one non-attention dropout site (hash_dropout of one
+    [B, S, 64, d] bf16 stream) forward, and forward plus backward; and the
+    site runs a training step makes: the embeddings' n once, each layer's
+    2n (attention output, MLP) in the forward and again in the remat
+    recompute, each backward once."""
+    from viewformer_tpu_torch.ops.dropout import hash_dropout
+
+    x = torch.randn(TRAIN_B, S, 64, model.config.d_model, device='cuda',
+                    dtype=torch.bfloat16, requires_grad=True)
+    grad = torch.randn_like(x)
+    fwd_ms = time_ms(lambda: hash_dropout(WORDS, x, RATE), n=10)
+    both_ms = time_ms(lambda: hash_dropout(WORDS, x, RATE).backward(grad), n=10)
+    block_sites = model.config.n_layer * 2 * n_streams
+    return fwd_ms, both_ms, n_streams + 2 * block_sites, n_streams + block_sites
+
+
+def train_path(ac, config, log, card, steps):
     """Phase 5. Returns the launch counts of the timed steps."""
     from viewformer_tpu_torch.train.transformer import (init_transformer_state,
                                                         make_transformer_train_step)
@@ -318,37 +429,53 @@ def train_path(ac, config, log, card):
     model, state = init_transformer_state(config, torch.Generator().manual_seed(0),
                                           torch.bfloat16, 'cuda')
     train_step = make_transformer_train_step(model, config)
-    batches = [train_batch(TRAIN_B, seed, 'cuda') for seed in range(TRAIN_STEPS + 1)]
-    state, metrics = train_step(state, batches[0])  # warm-up
+    batches = [train_batch(TRAIN_B, seed, 'cuda') for seed in range(steps + 1)]
+    # each step draws its dropout seeds from a generator of its own seed
+    state, metrics = train_step(state, batches[0], torch.Generator().manual_seed(0))  # warm-up
     warm_loss = metrics['loss'].item()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     ac.reset_launch_counts()
     step_s, losses = [], []
-    for batch in batches[1:]:
+    for i, batch in enumerate(batches[1:], 1):
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch)
+        state, metrics = train_step(state, batch, torch.Generator().manual_seed(i))
         losses.append(metrics['loss'].item())  # waits for the step
         step_s.append(time.perf_counter() - t0)
     launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
 
-    # per layer and step: forward and remat recompute run B1 and B2 once
-    # each, the backward B4 once and B3 once, except in the last layer: its
-    # stream-0 output reaches no loss (the losses read the generate and
-    # localize streams), so autograd never runs that B3; its K0/V0 still get
-    # gradients through B4
-    n = config.n_layer * TRAIN_STEPS
-    expected = {'block_causal_attention_fwd': 2 * n, 'branch_attention_fwd': 2 * n,
-                'block_causal_attention_bwd': n - TRAIN_STEPS, 'branch_attention_bwd': n}
+    # per layer and step: forward and remat recompute run the forward kernels
+    # (B1 and B2, or with dropout B5 and B7) once each, the backward B4 (B8)
+    # once and B3 (B6) once, except in the last layer: its stream-0 output
+    # reaches no loss (the losses read the generate and localize streams), so
+    # autograd never runs that B3 (B6); its K0/V0 still get gradients
+    # through B4 (B8)
+    n = config.n_layer * steps
+    names = (['block_causal_attention_dropout_fwd', 'branch_attention_dropout_fwd',
+              'block_causal_attention_dropout_bwd', 'branch_attention_dropout_bwd']
+             if config.dropout > 0 else
+             ['block_causal_attention_fwd', 'branch_attention_fwd',
+              'block_causal_attention_bwd', 'branch_attention_bwd'])
+    expected = {fn.__name__: 0 for fn in ac.KERNELS}
+    expected.update(zip(names, (2 * n, 2 * n, n - steps, n)))
     median = statistics.median(step_s)
-    emit({'phase': 'train', 'card': card, 'batch': TRAIN_B, 'frames_per_sequence': S,
-          'tokens_per_step': TRAIN_B * S * 64, 'steps': TRAIN_STEPS, 'step_s': step_s,
-          'step_s_median': median, 'tokens_per_s': TRAIN_B * S * 64 / median,
-          'max_memory_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
-          'warmup_loss': warm_loss, 'losses': losses, 'metrics': {
-              key: value.item() for key, value in metrics.items()},
-          'launches': launches, 'expected_launches': expected}, log)
+    record = {'phase': 'train', 'card': card, 'dropout': config.dropout, 'batch': TRAIN_B,
+              'frames_per_sequence': S, 'tokens_per_step': TRAIN_B * S * 64, 'steps': steps,
+              'step_s': step_s, 'step_s_median': median,
+              'tokens_per_s': TRAIN_B * S * 64 / median,
+              'max_memory_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
+              'warmup_loss': warm_loss, 'losses': losses, 'metrics': {
+                  key: value.item() for key, value in metrics.items()},
+              'launches': launches, 'expected_launches': expected}
+    if config.dropout > 0:
+        fwd_ms, both_ms, fwd_runs, bwd_runs = dropout_site_ms(model, 2 + model.use_localization)
+        site_ms = fwd_runs * fwd_ms + bwd_runs * (both_ms - fwd_ms)
+        record['non_attention_dropout'] = {
+            'site_fwd_ms': fwd_ms, 'site_fwd_bwd_ms': both_ms, 'fwd_runs_per_step': fwd_runs,
+            'bwd_runs_per_step': bwd_runs, 'est_ms_per_step': site_ms,
+            'est_share_of_step': site_ms / (1000 * median)}
+    emit(record, log)
     check(all(np.isfinite(losses + [warm_loss])), f'non-finite train loss {losses}')
     check(launches == expected, f'train launch counts {launches} != {expected}')
     del model, state, batches
@@ -357,29 +484,32 @@ def train_path(ac, config, log, card):
 
 
 def train_card_vs_cpu(config, log):
-    """Phase 6: the same weights and batch through the train step on the card
-    (bf16 compute, kernels, remat) and on the CPU (f32, plain twins)."""
+    """Phase 6: the same weights, batch and dropout seeds through the train
+    step on the card (bf16 compute, kernels, remat) and on the CPU (f32,
+    plain twins)."""
     from viewformer_tpu_torch.train.transformer import (init_transformer_state,
                                                         make_transformer_train_step)
 
     batch = train_batch(COMPARE_B, seed=100, device='cpu')
+    names = compared(config.n_layer)
     runs = {}
     for device, dtype in (('cuda', torch.bfloat16), ('cpu', torch.float32)):
         model, state = init_transformer_state(config, torch.Generator().manual_seed(0), dtype,
                                               device, remat=device == 'cuda', warmup_steps=1)
         step = make_transformer_train_step(model, config)
         params = dict(model.named_parameters())
-        initial = {name: params[name].detach().cpu().clone() for name in COMPARED}
+        initial = {name: params[name].detach().cpu().clone() for name in names}
         device_batch = tuple(x.to(device) for x in batch)
         t0 = time.perf_counter()
-        state, metrics = step(state, device_batch)  # lr(0) = 0: no update
+        # lr(0) = 0: no update; step i draws its dropout seeds from seed i
+        state, metrics = step(state, device_batch, torch.Generator().manual_seed(0))
         losses = [metrics['loss'].item()]
         first_step_s = time.perf_counter() - t0
-        grads = {name: params[name].grad.detach().cpu().clone() for name in COMPARED}
-        for _ in range(2):
-            state, metrics = step(state, device_batch)
+        grads = {name: params[name].grad.detach().cpu().clone() for name in names}
+        for i in (1, 2):
+            state, metrics = step(state, device_batch, torch.Generator().manual_seed(i))
             losses.append(metrics['loss'].item())
-        moved = {name: params[name].detach().cpu() - initial[name] for name in COMPARED}
+        moved = {name: params[name].detach().cpu() - initial[name] for name in names}
         runs[device] = losses, grads, moved, first_step_s
         del model, state, params
     torch.cuda.empty_cache()
@@ -391,16 +521,17 @@ def train_card_vs_cpu(config, log):
     (card_losses, card_grads, card_moved, card_s), (cpu_losses, cpu_grads, cpu_moved, cpu_s) = \
         runs['cuda'], runs['cpu']
     loss_rel = abs(card_losses[0] - cpu_losses[0]) / abs(cpu_losses[0])
-    grad_cosine = {name: cosine(card_grads[name], cpu_grads[name]) for name in COMPARED}
-    update_cosine = {name: cosine(card_moved[name], cpu_moved[name]) for name in COMPARED}
-    emit({'phase': 'train_card_vs_cpu', 'batch': COMPARE_B, 'frames_per_sequence': S,
+    grad_cosine = {name: cosine(card_grads[name], cpu_grads[name]) for name in names}
+    update_cosine = {name: cosine(card_moved[name], cpu_moved[name]) for name in names}
+    emit({'phase': 'train_card_vs_cpu', 'dropout': config.dropout, 'n_layer': config.n_layer,
+          'batch': COMPARE_B, 'frames_per_sequence': S,
           'card_losses': card_losses, 'cpu_losses': cpu_losses, 'loss_rel_err': loss_rel,
           'loss_tol': TRAIN_LOSS_TOL, 'grad_cosine': grad_cosine, 'grad_cosine_min': GRAD_COSINE,
           'update_cosine': update_cosine, 'update_cosine_min': UPDATE_COSINE,
           'card_first_step_s': card_s, 'cpu_first_step_s': cpu_s}, log)
     check(all(np.isfinite(card_losses)), f'non-finite card losses {card_losses}')
     check(loss_rel <= TRAIN_LOSS_TOL, f'card loss differs from CPU by {loss_rel}')
-    for name in COMPARED:
+    for name in names:
         check(grad_cosine[name] >= GRAD_COSINE,
               f'{name}: gradient cosine {grad_cosine[name]} < {GRAD_COSINE}')
         check(update_cosine[name] >= UPDATE_COSINE,
@@ -442,9 +573,13 @@ def main():
     del models
     torch.cuda.empty_cache()
 
-    train_config = MIGTConfig(dropout=0.0)
-    launches['train'] = train_path(ac, train_config, log, card)
-    train_card_vs_cpu(train_config, log)
+    config = MIGTConfig()  # the default recipe: dropout 0.1
+    check(config.dropout == RATE, f'MIGTConfig().dropout is {config.dropout}, not {RATE}')
+    launches['train_dropout_0.1'] = train_path(ac, config, log, card, TRAIN_STEPS)
+    no_dropout = dataclasses.replace(config, dropout=0.0)
+    launches['train_dropout_0'] = train_path(ac, no_dropout, log, card, TRAIN_STEPS_NO_DROPOUT)
+    train_card_vs_cpu(no_dropout, log)
+    train_card_vs_cpu(dataclasses.replace(config, n_layer=COMPARE_DROPOUT_LAYERS), log)
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {
@@ -452,6 +587,10 @@ def main():
         'branch_attention_fwd': (csrc + 'branching_attention.cu', ':69'),
         'block_causal_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':149'),
         'branch_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':182'),
+        'block_causal_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':331'),
+        'block_causal_attention_dropout_bwd': (csrc + 'branching_attention_bwd.cu', ':347'),
+        'branch_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':381'),
+        'branch_attention_dropout_bwd': (csrc + 'branching_attention_bwd.cu', ':414'),
     }
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': sources[name][0],

@@ -1,8 +1,8 @@
 """The port's attention backward (viewformer_tpu_torch.ops) against the JAX
 package: the plain twins of kernels B3/B4 against the Pallas backward kernels
 in interpret mode and against jax.vjp of the dense attention, the autograd
-Functions by gradcheck, the log-sum-exp of the forward, and the refusal of
-attention dropout."""
+Functions by gradcheck, the log-sum-exp of the forward, and attention
+dropout's need for seeds."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -134,9 +134,17 @@ def test_forward_log_sum_exp():
 
 
 def test_attention_dropout_is_refused():
-    x = torch.zeros(1, 1, 2, 4, 8)
-    with pytest.raises(NotImplementedError, match='B5-B8'):
+    """Attention dropout without seed words is refused; with them it runs,
+    and at rate 0 the seeds are not read."""
+    x = torch.randn(1, 1, 2, 4, 8, generator=torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match='needs seeds'):
         tba.multi_end_block_attention((x, x), (x, x), (x, x), dropout_rate=0.1)
+    dropped = tba.multi_end_block_attention((x, x), (x, x), (x, x), 0.5, ((1, 2), (3, 4)))
+    plain = tba.multi_end_block_attention((x, x), (x, x), (x, x))
+    assert all(d.shape == p.shape and not torch.equal(d, p) for d, p in zip(dropped, plain))
+    for a, b in zip(tba.multi_end_block_attention((x, x), (x, x), (x, x), 0.0, ((1, 2), None)),
+                    plain):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_backward_wrappers_refuse_other_devices():

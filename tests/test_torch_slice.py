@@ -1,6 +1,7 @@
 """The port's serving slice end to end against the JAX package, its
-independence from jax (serving and a train step, with jax and flax blocked),
-and chip_smoke.py's refusal to run without a card."""
+independence from jax (serving and train steps without and with dropout,
+with jax and flax blocked), and chip_smoke.py's refusal to run without a
+card."""
 import os
 import shutil
 import subprocess
@@ -95,6 +96,13 @@ cameras, tokens = process_batch(rng.randn(3, 7).astype(np.float32),
     rng.randint(0, 16, (3, 2, 2)), 'relative', 'train')
 state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]))
+assert state.step == 1 and np.isfinite(float(metrics['loss']))
+import dataclasses
+config = dataclasses.replace(config, dropout=0.1)
+model, state = init_transformer_state(config, gen, dtype=torch.float32)
+state, metrics = make_transformer_train_step(model, config)(
+    state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
+    torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
 assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules if sys.modules[m])
 print('ran without jax')

@@ -2,8 +2,10 @@
 (viewformer_tpu_torch.models.migt, .train.transformer) against the JAX
 package at tiny configs, with weights through the bridge. Everything runs in
 f32 on the CPU, where the attention takes its plain twins (JAX: the dense
-path), so the tolerances are f32 reassociation."""
+path, or with dropout the fused path in interpret mode), so the tolerances
+are f32 reassociation."""
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -11,8 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_dropout import pallas_interpret
 from test_train_transformer import TINY
+from viewformer_tpu.models import migt as jmigt
 from viewformer_tpu.models.migt import MIGT
+from viewformer_tpu.ops import branching_attention as jba
+from viewformer_tpu.ops import dropout as jdropout
 from viewformer_tpu.train import transformer as jtt
 from viewformer_tpu.utils.schedules import Schedule
 from viewformer_tpu_torch.models.migt import MIGT as TorchMIGT
@@ -188,13 +194,149 @@ def test_random_pose_multiplier_draws_from_generator():
 
 
 def test_train_step_refuses_dropout():
+    """The port reproduces dropout_impl='hash' only: 'rng' (threefry noise)
+    raises, and a training forward with dropout needs one seed pair a site."""
     config = dataclasses.replace(TINY, dropout=0.1)
+    with pytest.raises(ValueError, match="dropout_impl='rng' is not ported"):
+        ttt.init_transformer_state(config, dtype=torch.float32, dropout_impl='rng')
     model, state = ttt.init_transformer_state(config, dtype=torch.float32)
-    poses, tokens = _batch(2)
-    with pytest.raises(NotImplementedError, match='B5-B8'):
-        ttt.make_transformer_train_step(model, config)(
-            state, (torch.from_numpy(poses), torch.from_numpy(tokens)))
+    poses, tokens = (torch.from_numpy(x) for x in _batch(2))
+    assert model.dropout_sites(3) == 3 + 2 * 8
+    for seeds in (None, [(1, 2)] * 18):
+        with pytest.raises(ValueError, match='needs 19 dropout seed pairs'):
+            model(poses, tokens, compute_losses=True, deterministic=False, dropout_seeds=seeds)
     assert state.step == 0
+
+
+DROPOUT_SEED = 11  # the port's generator seed, each step
+
+
+def _route_jax_dropout(monkeypatch, words):
+    """Make the JAX package draw the port's dropout seeds: _key_words returns
+    the next pair of `words` in call order (a traced forward draws its sites
+    in that order), and MIGT's attention takes the fused path with its
+    Pallas kernels in interpret mode (the hash-dropout kernels B5-B8).
+    Returns the list of calls, for counting the sites a trace drew."""
+    calls = []
+
+    def key_words(key):
+        pair = words[len(calls) % len(words)]
+        calls.append(pair)
+        return jnp.uint32(pair[0]), jnp.uint32(pair[1])
+
+    monkeypatch.setattr(jdropout, '_key_words', key_words)
+    pallas_interpret(monkeypatch)
+    monkeypatch.setattr(jmigt, 'multi_end_block_attention',
+                        functools.partial(jba.multi_end_block_attention, use_fused=True))
+    return calls
+
+
+DROPOUT_CONFIGS = {
+    'tiny': dataclasses.replace(TINY, dropout=0.1),
+    'no_localization': dataclasses.replace(TINY, dropout=0.1,
+                                           localization_weight=Schedule.zero()),
+}
+
+
+@pytest.fixture(scope='module', params=sorted(DROPOUT_CONFIGS))
+def jax_dropout_training(request):
+    """Three JAX train steps at dropout 0.1 (dropout_impl='hash', no remat)
+    on one batch, every step drawing the port's seeds of one step (the jitted
+    step traces once): as jax_training, plus those seeds."""
+    config = DROPOUT_CONFIGS[request.param]
+    port_model, _ = ttt.init_transformer_state(config, dtype=torch.float32)
+    words = ttt.draw_dropout_seeds(port_model, torch.Generator().manual_seed(DROPOUT_SEED))
+    with pytest.MonkeyPatch.context() as monkeypatch:
+        calls = _route_jax_dropout(monkeypatch, words)
+        optimizer, _ = jtt.create_transformer_optimizer(config, warmup_steps=2)
+        jmodel, jstate = jtt.init_transformer_state(config, jax.random.PRNGKey(0), optimizer,
+                                                    dropout_impl='hash', remat=False)
+        jstep = jtt.make_transformer_train_step(jmodel, config, optimizer, donate=False)
+        poses, tokens = _batch(1, B=4)
+        batch = (jnp.asarray(poses), jnp.asarray(tokens))
+        initial, metrics, params = jax.device_get(jstate.params), [], []
+        for _ in range(3):
+            jstate, step_metrics = jstep(jstate, batch, jax.random.PRNGKey(0))
+            metrics.append(jax.device_get(step_metrics))
+            params.append(jax.device_get(jstate.params))
+        # one trace drew one key a site, in the port's site count
+        assert len(calls) == len(words) == port_model.dropout_sites(
+            2 + port_model.use_localization)
+    return config, initial, metrics, params, (poses, tokens)
+
+
+@pytest.mark.parametrize('n_steps', [1, 3])
+def test_dropout_train_steps_match_jax(jax_dropout_training, n_steps):
+    """n port train steps at dropout 0.1 against JAX's with the same seed
+    words at every site: metrics each step, then the parameters."""
+    config, initial, jax_metrics, jax_params, (poses, tokens) = jax_dropout_training
+    model, state = ttt.init_transformer_state(config, dtype=torch.float32, warmup_steps=2)
+    model.load_state_dict(state_dict_from_jax(model, {'params': initial}))
+    step = ttt.make_transformer_train_step(model, config)
+    batch = (torch.from_numpy(poses), torch.from_numpy(tokens))
+    for expected in jax_metrics[:n_steps]:
+        state, metrics = step(state, batch, torch.Generator().manual_seed(DROPOUT_SEED))
+        assert set(metrics) == set(expected)
+        for key in metrics:
+            _close(metrics[key], expected[key])
+    updated = state_dict_from_jax(model, {'params': jax_params[n_steps - 1]})
+    d = config.d_model
+    for name, value in model.state_dict().items():
+        value, expected = value.numpy(), updated[name].numpy()
+        if name.endswith('attn.c_attn.bias'):  # as in test_train_steps_match_jax
+            np.testing.assert_allclose(value[2 * d:], expected[2 * d:], atol=5e-5, err_msg=name)
+            value, expected = value[:2 * d], expected[:2 * d]
+        np.testing.assert_allclose(value, expected, atol=1e-5, err_msg=name)
+
+
+def test_dropout_forward_matches_jax(monkeypatch):
+    """The training forward at dropout 0.1 (every dropout site on) against
+    JAX's with the same seed words: losses and all three streams' hidden
+    states."""
+    config = DROPOUT_CONFIGS['tiny']
+    poses, tokens = _batch(4)
+    jmodel = MIGT(config, dropout_impl='hash')
+    params = jmodel.init(jax.random.PRNGKey(1), jnp.asarray(poses), jnp.asarray(tokens),
+                         compute_losses=True)['params']
+    port = _port(config, params)
+    words = ttt.draw_dropout_seeds(port, torch.Generator().manual_seed(5))
+    calls = _route_jax_dropout(monkeypatch, words)
+    expected = jmodel.apply({'params': params}, jnp.asarray(poses), jnp.asarray(tokens),
+                            compute_losses=True, deterministic=False, step=30,
+                            rngs={'dropout': jax.random.PRNGKey(2)})
+    assert len(calls) == len(words)
+    with torch.no_grad():
+        out = port(torch.from_numpy(poses), torch.from_numpy(tokens), compute_losses=True,
+                   deterministic=False, step=30, dropout_seeds=words)
+        undropped = port(torch.from_numpy(poses), torch.from_numpy(tokens), compute_losses=True,
+                         step=30)
+    for key in ('loss', 'ce_loss', 'pose_loss', 'logits'):
+        _close(out[key], expected[key])
+    for p, e in zip(out['hidden_states'], expected['hidden_states']):
+        _close(p, e)
+    assert not torch.allclose(out['loss'], undropped['loss'])
+
+
+def test_dropout_remat_and_seeds():
+    """With dropout on, remat (the recompute regenerates the masks from the
+    seeds passed in) gives the gradients of no remat exactly; the same
+    generator seed gives the same loss, another seed another loss."""
+    config = DROPOUT_CONFIGS['tiny']
+    batch = tuple(torch.from_numpy(x) for x in _batch(6))
+
+    def run(remat, seed):
+        model, state = ttt.init_transformer_state(config, torch.Generator().manual_seed(0),
+                                                  dtype=torch.float32, remat=remat)
+        state, metrics = ttt.make_transformer_train_step(model, config)(
+            state, batch, torch.Generator().manual_seed(seed))
+        return metrics['loss'], {name: p.grad for name, p in model.named_parameters()}
+
+    loss, grads = run(False, 0)
+    remat_loss, remat_grads = run(True, 0)
+    torch.testing.assert_close(remat_loss, loss, rtol=0, atol=0)
+    for name, grad in grads.items():
+        torch.testing.assert_close(remat_grads[name], grad, rtol=0, atol=0, msg=name)
+    assert not torch.allclose(run(True, 1)[0], loss)
 
 
 @pytest.mark.parametrize('augment,split', [('relative', 'train'), ('no', 'train'),

@@ -8,6 +8,18 @@
 //    the sum over branches of dK0/dV0 in _fb_bwd (attention_pallas.py:630-631):
 //    the backward of the one-shot branch attention, kernel B2 with
 //    first_q_frame = 0 and n_old = T.
+// B6 block_causal_attention_dropout_bwd replaces _block_causal_do_bwd_kernel3
+//    and B8 branch_attention_dropout_bwd replaces _branch_do_bwd_kernel3 with
+//    the sum over branches of _fbd_bwd (attention_pallas.py:708-709): the
+//    backward of B5/B7, B3/B4's code with the template flag kDrop set. Each
+//    block regenerates the dropout mask of the weights it visits from the
+//    seed words and their global indices (attention_tile.cuh; the index
+//    spaces are B5/B7's), so nothing is saved. With keep the scaled mask,
+//    as the reference (attention_pallas.py:366-378, 448-473):
+//      dP' = (dO V^T) * keep,  dS = W * (dP' - D),  dV += (W * keep)^T dO.
+//    D = rowsum(dO * O) still holds: O is the dropped output, so
+//    rowsum(dO * O) = sum_j W_j keep_j (dO . V_j) = rowsum(W * dP'), the
+//    reference's rowsum.
 //
 // Math, as the reference's (attention_pallas.py:138-146), no 1/sqrt(dh) scale:
 //   W  = softmax(S), S = Q K^T in f32, recomputed as exp(S - lse) from the
@@ -46,7 +58,8 @@
 // products a pair against the 5 of a single pass. The products run on the
 // tensor cores through WMMA 16x16x16 bf16 tiles, with no copy/compute
 // overlap. Simple and right first; TMA, wgmma and a pipelined ring are later
-// work.
+// work. The hash of B6/B8 is hidden the same way: on an H100 (700 W) they ran
+// within 1% of B3/B4's times.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -54,11 +67,14 @@
 #include "attention_tile.cuh"
 
 using namespace nvcuda;
+using tile::Dropout;
+using tile::keep_factor;
 using tile::kDh;
 using tile::kRows;
 using tile::kThreads;
 using tile::kTile;
 using tile::load_tile;
+using tile::WeightIndex;
 
 namespace {
 
@@ -187,44 +203,52 @@ __device__ void load_query_state(const Smem& sm, const bf16* o, const float* lse
 
 // From the warp's rows of s and dp: W = exp(s - lse), dS = W (dp - D), both
 // rounded to bf16 into p and ds. In key blocks the tiles are transposed
-// ([key, query]), so lse and D follow the column.
-template <bool kTransposed>
-__device__ void softmax_grad(const Smem& sm, int r0, int lane) {
+// ([key, query]), so lse and D follow the column. With kDrop, dp is scaled by
+// the weight's keep factor first and p holds W * keep; wi gives the weights'
+// global indices by (query, key).
+template <bool kTransposed, bool kDrop>
+__device__ void softmax_grad(const Smem& sm, int r0, int lane, const Dropout& drop,
+                             WeightIndex wi) {
   const int row = r0 + lane / 2, half = lane & 1;
   for (int j = 0; j < 32; ++j) {
     const int col = half * 32 + j;
     const int i = row * kRows + col;
     const int q = kTransposed ? col : row;
     const float w = expf(sm.s[i] - sm.lse[q]);
-    sm.p[i] = __float2bfloat16(w);
-    sm.ds[i] = __float2bfloat16(w * (sm.dp[i] - sm.d[q]));
+    float dp = sm.dp[i], wk = w;
+    if (kDrop) {
+      const float keep = keep_factor(drop, wi.base + q * wi.stride + (kTransposed ? row : col));
+      dp *= keep;
+      wk *= keep;
+    }
+    sm.p[i] = __float2bfloat16(wk);
+    sm.ds[i] = __float2bfloat16(w * (dp - sm.d[q]));
   }
   __syncwarp();
 }
 
 // Query block: one streamed key frame (K in in_a, V in in_b) into the warp's
 // dQ rows. own_a holds Q, own_b dO.
-__device__ void query_step(const Smem& sm, Acc* dq, int r0, int lane) {
-  product_abt(sm.s + r0 * kRows, sm.own_a + r0 * kDh, sm.in_a);   // S = Q K^T
-  product_abt(sm.dp + r0 * kRows, sm.own_b + r0 * kDh, sm.in_b);  // dP = dO V^T
-  __syncwarp();
-  softmax_grad<false>(sm, r0, lane);
-  accumulate_ab(dq, sm.ds + r0 * kRows, sm.in_a);                 // dQ += dS K
-}
-
+template <bool kDrop>
 __device__ void query_frame(const Smem& sm, Acc* dq, const bf16* k, const bf16* v, int r0,
-                            int lane) {
+                            int lane, const Dropout& drop, WeightIndex wi) {
   __syncthreads();  // every warp is done with the previous frame
   load_tile(sm.in_a, k);
   load_tile(sm.in_b, v);
   __syncthreads();
-  query_step(sm, dq, r0, lane);
+  product_abt(sm.s + r0 * kRows, sm.own_a + r0 * kDh, sm.in_a);   // S = Q K^T
+  product_abt(sm.dp + r0 * kRows, sm.own_b + r0 * kDh, sm.in_b);  // dP = dO V^T
+  __syncwarp();
+  softmax_grad<false, kDrop>(sm, r0, lane, drop, wi);
+  accumulate_ab(dq, sm.ds + r0 * kRows, sm.in_a);                 // dQ += dS K
 }
 
 // Key block: one streamed query frame into the warp's 16 key rows of dK/dV.
 // own_a holds K, own_b V; q, dout, o are the query frame's tiles.
+template <bool kDrop>
 __device__ void key_frame(const Smem& sm, Acc* dk, Acc* dv, const bf16* q, const bf16* dout,
-                          const bf16* o, const float* lse, int r0, int lane) {
+                          const bf16* o, const float* lse, int r0, int lane,
+                          const Dropout& drop, WeightIndex wi) {
   __syncthreads();  // every warp is done with the previous frame
   load_tile(sm.in_a, q);
   load_tile(sm.in_b, dout);
@@ -232,7 +256,7 @@ __device__ void key_frame(const Smem& sm, Acc* dk, Acc* dv, const bf16* q, const
   product_abt(sm.s + r0 * kRows, sm.own_a + r0 * kDh, sm.in_a);   // S^T = K Q^T
   product_abt(sm.dp + r0 * kRows, sm.own_b + r0 * kDh, sm.in_b);  // dP^T = V dO^T
   __syncwarp();
-  softmax_grad<true>(sm, r0, lane);
+  softmax_grad<true, kDrop>(sm, r0, lane, drop, wi);
   accumulate_ab(dv, sm.p + r0 * kRows, sm.in_b);                  // dV += W^T dO
   accumulate_ab(dk, sm.ds + r0 * kRows, sm.in_a);                 // dK += dS^T Q
 }
@@ -240,12 +264,13 @@ __device__ void key_frame(const Smem& sm, Acc* dk, Acc* dv, const bf16* q, const
 // q, k, v, o, dout, dq, dk, dv: [BH, T*64, 64]; lse: [BH, T*64].
 // grid (T, 2*BH): y < BH are key blocks (row y, key frame x), the rest query
 // blocks (row y - BH, query frame x).
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ o,
                         const bf16* __restrict__ dout, const float* __restrict__ lse,
                         bf16* __restrict__ dq, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int bh, int frames) {
+                        bf16* __restrict__ dv, int bh, int frames, Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = carve(smem);
   const int r0 = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32;
@@ -255,6 +280,11 @@ block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const size_t base = (size_t)row * frames * kTile;
   const size_t own = base + (size_t)f * kTile;
   const float* lse_row = lse + (size_t)row * frames * kRows;
+  // B5's index of (query frame a, key frame b): (row*TL + a*64 + i)*TL + b*64 + j
+  const unsigned tl = frames * kRows;
+  auto weight_index = [&](int a, int b) {
+    return WeightIndex{(row * tl + a * kRows) * tl + b * kRows, tl};
+  };
 
   if (key_block) {
     Acc acc_k[kDh / 16], acc_v[kDh / 16];
@@ -264,7 +294,8 @@ block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(sm.own_b, v + own);
     for (int t = f; t < frames; ++t) {
       const size_t at = base + (size_t)t * kTile;
-      key_frame(sm, acc_k, acc_v, q + at, dout + at, o + at, lse_row + t * kRows, r0, lane);
+      key_frame<kDrop>(sm, acc_k, acc_v, q + at, dout + at, o + at, lse_row + t * kRows, r0,
+                       lane, drop, weight_index(t, f));
     }
     store_rows(acc_k, sm.s, dk + own, r0, lane);
     store_rows(acc_v, sm.dp, dv + own, r0, lane);
@@ -276,8 +307,8 @@ block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile(sm.own_b, dout + own);
   load_query_state(sm, o + own, lse_row + f * kRows, sm.own_b);
   for (int t = 0; t <= f; ++t)
-    query_frame(sm, acc_q, k + base + (size_t)t * kTile, v + base + (size_t)t * kTile, r0,
-                lane);
+    query_frame<kDrop>(sm, acc_q, k + base + (size_t)t * kTile, v + base + (size_t)t * kTile,
+                       r0, lane, drop, weight_index(f, t));
   store_rows(acc_q, sm.s, dq + own, r0, lane);
 }
 
@@ -285,7 +316,8 @@ block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // k0, v0, dk0, dv0: [BH0, T*64, 64], shared by the S = G / BH0 branches
 // (branch g reads row g % BH0). grid (T, BH0 + G): y < BH0 are key blocks of
 // K0/V0 (row y, key frame x), the rest query blocks (branch row y - BH0,
-// query frame x).
+// query frame x). With kDrop, qb is the Pallas q-tile of B7's index space.
+template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
                   const bf16* __restrict__ v0, const bf16* __restrict__ kb,
@@ -293,11 +325,21 @@ branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
                   const bf16* __restrict__ dout, const float* __restrict__ lse,
                   bf16* __restrict__ dq, bf16* __restrict__ dk0, bf16* __restrict__ dv0,
                   bf16* __restrict__ dkb, bf16* __restrict__ dvb, int g_rows, int bh0,
-                  int frames) {
+                  int frames, int qb, Dropout drop) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem sm = carve(smem);
   const int r0 = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32;
   const int f = blockIdx.x;
+  // B7's index of branch row g, query frame a: rows of stride TL + qb from
+  // (g*TL + a*64)*(TL + qb); K0 frame b at column b*64, the own frame at
+  // TL + (a*64 mod qb), the key's position inside the query's q-tile
+  const unsigned tl = frames * kRows, stride = tl + qb;
+  auto index_old = [&](int g, int a, int b) {
+    return WeightIndex{(g * tl + a * kRows) * stride + b * kRows, stride};
+  };
+  auto index_own = [&](int g, int a) {
+    return WeightIndex{(g * tl + a * kRows) * stride + tl + (kDrop ? a * kRows % qb : 0), stride};
+  };
 
   if (blockIdx.y < bh0) {  // key block: K0/V0 frame f of row blockIdx.y
     const size_t own0 = ((size_t)blockIdx.y * frames + f) * kTile;
@@ -309,7 +351,8 @@ branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
     for (int g = blockIdx.y; g < g_rows; g += bh0)  // every branch of this row
       for (int t = f + 1; t < frames; ++t) {
         const size_t at = ((size_t)g * frames + t) * kTile;
-        key_frame(sm, acc_k, acc_v, q + at, dout + at, o + at, lse + at / kDh, r0, lane);
+        key_frame<kDrop>(sm, acc_k, acc_v, q + at, dout + at, o + at, lse + at / kDh, r0, lane,
+                         drop, index_old(g, t, f));
       }
     store_rows(acc_k, sm.s, dk0 + own0, r0, lane);
     store_rows(acc_v, sm.dp, dv0 + own0, r0, lane);
@@ -324,35 +367,72 @@ branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
   load_tile(sm.own_b, dout + own);
   load_query_state(sm, o + own, lse + own / kDh, sm.own_b);
   for (int t = 0; t < f; ++t)
-    query_frame(sm, acc, k0 + base0 + (size_t)t * kTile, v0 + base0 + (size_t)t * kTile, r0,
-                lane);
-  query_frame(sm, acc, kb + own, vb + own, r0, lane);  // the own frame, last
+    query_frame<kDrop>(sm, acc, k0 + base0 + (size_t)t * kTile, v0 + base0 + (size_t)t * kTile,
+                       r0, lane, drop, index_old(g, f, t));
+  // the own frame, last
+  query_frame<kDrop>(sm, acc, kb + own, vb + own, r0, lane, drop, index_own(g, f));
   store_rows(acc, sm.s, dq + own, r0, lane);
   __syncthreads();  // every warp's rows of p and ds (the own frame's) are written
   zero(acc);
   accumulate_atb(acc, sm.ds, r0, sm.own_a);  // dKb = dS^T Q, the warp's 16 keys
   store_rows(acc, sm.s, dkb + own, r0, lane);
   zero(acc);
-  accumulate_atb(acc, sm.p, r0, sm.own_b);   // dVb = W^T dO
+  accumulate_atb(acc, sm.p, r0, sm.own_b);   // dVb = W^T dO (W * keep with kDrop)
   store_rows(acc, sm.dp, dvb + own, r0, lane);
+}
+
+template <bool kDrop>
+int launch_block_causal_bwd(const void* q, const void* k, const void* v, const void* o,
+                            const void* dout, const void* lse, void* dq, void* dk, void* dv,
+                            int bh, int frames, Dropout drop, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(block_causal_bwd_kernel<kDrop>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  block_causal_bwd_kernel<kDrop><<<dim3(frames, 2 * bh), kThreads, kSmemBytes,
+                                   (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
+      (const float*)lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, bh, frames, drop);
+  return (int)cudaGetLastError();
+}
+
+template <bool kDrop>
+int launch_branch_bwd(const void* q, const void* k0, const void* v0, const void* kb,
+                      const void* vb, const void* o, const void* dout, const void* lse,
+                      void* dq, void* dk0, void* dv0, void* dkb, void* dvb, int g, int bh0,
+                      int frames, int qb, Dropout drop, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      branch_bwd_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  branch_bwd_kernel<kDrop><<<dim3(frames, bh0 + g), kThreads, kSmemBytes,
+                             (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
+      (const bf16*)o, (const bf16*)dout, (const float*)lse, (bf16*)dq, (bf16*)dk0,
+      (bf16*)dv0, (bf16*)dkb, (bf16*)dvb, g, bh0, frames, qb, drop);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each launches on the given stream,
-// does not synchronise, and returns cudaGetLastError() of the launch.
+// does not synchronise, and returns cudaGetLastError() of the launch. s0, s1,
+// rate, scale: see Dropout (attention_tile.cuh).
 extern "C" int block_causal_attention_bwd(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, const void* lse,
                                           void* dq, void* dk, void* dv, int bh, int frames,
                                           void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      block_causal_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  block_causal_bwd_kernel<<<dim3(frames, 2 * bh), kThreads, kSmemBytes,
-                            (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
-      (const float*)lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, bh, frames);
-  return (int)cudaGetLastError();
+  return launch_block_causal_bwd<false>(q, k, v, o, dout, lse, dq, dk, dv, bh, frames,
+                                        Dropout{}, stream);
+}
+
+extern "C" int block_causal_attention_dropout_bwd(const void* q, const void* k, const void* v,
+                                                  const void* o, const void* dout,
+                                                  const void* lse, void* dq, void* dk,
+                                                  void* dv, int bh, int frames, unsigned s0,
+                                                  unsigned s1, float rate, float scale,
+                                                  void* stream) {
+  return launch_block_causal_bwd<true>(q, k, v, o, dout, lse, dq, dk, dv, bh, frames,
+                                       Dropout{s0, s1, rate, scale}, stream);
 }
 
 extern "C" int branch_attention_bwd(const void* q, const void* k0, const void* v0,
@@ -360,12 +440,17 @@ extern "C" int branch_attention_bwd(const void* q, const void* k0, const void* v
                                     const void* dout, const void* lse, void* dq, void* dk0,
                                     void* dv0, void* dkb, void* dvb, int g, int bh0,
                                     int frames, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      branch_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  branch_bwd_kernel<<<dim3(frames, bh0 + g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
-      (const bf16*)o, (const bf16*)dout, (const float*)lse, (bf16*)dq, (bf16*)dk0,
-      (bf16*)dv0, (bf16*)dkb, (bf16*)dvb, g, bh0, frames);
-  return (int)cudaGetLastError();
+  return launch_branch_bwd<false>(q, k0, v0, kb, vb, o, dout, lse, dq, dk0, dv0, dkb, dvb, g,
+                                  bh0, frames, 0, Dropout{}, stream);
+}
+
+extern "C" int branch_attention_dropout_bwd(const void* q, const void* k0, const void* v0,
+                                            const void* kb, const void* vb, const void* o,
+                                            const void* dout, const void* lse, void* dq,
+                                            void* dk0, void* dv0, void* dkb, void* dvb, int g,
+                                            int bh0, int frames, int qb, unsigned s0,
+                                            unsigned s1, float rate, float scale,
+                                            void* stream) {
+  return launch_branch_bwd<true>(q, k0, v0, kb, vb, o, dout, lse, dq, dk0, dv0, dkb, dvb, g,
+                                 bh0, frames, qb, Dropout{s0, s1, rate, scale}, stream);
 }

@@ -15,6 +15,22 @@ attention has no 1/sqrt(dh) scale; wpe has a static 256 rows; the mask token
 is n_embeddings and the localization token n_embeddings + 1; GELU is exact
 and LayerNorm eps is 1e-5.
 
+Dropout (training, config.dropout > 0) is the JAX package's
+dropout_impl='hash' (ops/dropout.py): every site's mask is a hash of two
+uint32 seed words and the element index, so the seeds are drawn before the
+forward (train/transformer.py) and passed in as `dropout_seeds`, one pair a
+site, and a remat recompute regenerates the same masks. With n streams the
+sites are, in the order the JAX module draws its dropout keys:
+
+  1. the embeddings, one site a stream, after the cast to dtype (n sites);
+  2. then for each layer, 2 + 2n sites: the attention weights of stream 0,
+     then of the side streams (kernels B5-B8); the attention output of each
+     stream after c_proj; the MLP output of each stream after c_proj.
+
+`MIGT.dropout_sites(n)` counts them. The pose MLPs have no dropout. The JAX
+package's dropout_impl='rng' (threefry Bernoulli noise) is not reproduced:
+the marginal is the same, the noise stream is not.
+
 Dtypes follow flax's dtype/param_dtype. `dtype` is the tower's compute dtype;
 `param_dtype` (default: dtype) is what the parameters are stored in. The
 serving form keeps the tower's parameters in dtype (bf16 on the card); the
@@ -32,6 +48,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.branching_attention import multi_end_block_attention
+from ..ops.dropout import hash_dropout
 from ..utils import geometry
 from .initializers import truncated_normal_
 
@@ -59,8 +76,10 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(d_inner, d_out)
         self.dtype = dtype
 
-    def forward(self, x):
-        return linear(self.c_proj, F.gelu(linear(self.c_fc, x, self.dtype)), self.dtype)
+    def forward(self, x, dropout_rate=0.0, words=None):
+        """With dropout_rate > 0, hash dropout of the output with seed words."""
+        out = linear(self.c_proj, F.gelu(linear(self.c_fc, x, self.dtype)), self.dtype)
+        return hash_dropout(words, out, dropout_rate)
 
 
 class BranchingAttention(nn.Module):
@@ -71,9 +90,11 @@ class BranchingAttention(nn.Module):
         self.n_head = n_head
         self.dtype = dtype
 
-    def forward(self, streams, dropout_rate=0.0):
+    def forward(self, streams, dropout_rate=0.0, seeds=None):
         """streams: a list of [B, T, L, d], stream 0 first -> the list of
-        their attention outputs."""
+        their attention outputs. With dropout_rate > 0, seeds holds the
+        attention's two pairs of words (stream 0, side streams), then one
+        pair a stream for the output dropout after c_proj."""
         B, T, L, d = streams[0].shape
         H = self.n_head
         vs, qs, ks = [], [], []
@@ -81,9 +102,12 @@ class BranchingAttention(nn.Module):
             v, q, k = linear(self.c_attn, x, self.dtype).split(d, -1)  # reference chunk order
             for part, heads in ((v, vs), (q, qs), (k, ks)):
                 heads.append(part.reshape(B, T, L, H, d // H).permute(0, 3, 1, 2, 4))
-        outs = multi_end_block_attention(tuple(ks), tuple(vs), tuple(qs), dropout_rate)
-        return [linear(self.c_proj, out.permute(0, 2, 3, 1, 4).reshape(B, T, L, d), self.dtype)
-                for out in outs]
+        seeds = seeds or [None] * (2 + len(streams))
+        outs = multi_end_block_attention(tuple(ks), tuple(vs), tuple(qs), dropout_rate,
+                                         seeds[:2])
+        merged = [out.permute(0, 2, 3, 1, 4).reshape(B, T, L, d) for out in outs]
+        return [hash_dropout(words, linear(self.c_proj, x, self.dtype), dropout_rate)
+                for words, x in zip(seeds[2:], merged)]
 
 
 class Block(nn.Module):
@@ -95,11 +119,16 @@ class Block(nn.Module):
         self.mlp = MLP(d_model, 4 * d_model, d_model, dtype)
         self.dtype = dtype
 
-    def forward(self, *streams, dropout_rate=0.0):
+    def forward(self, *streams, dropout_rate=0.0, seeds=None):
+        """seeds: the layer's 2 + 2n dropout seed pairs in site order
+        (module docstring), read when dropout_rate > 0."""
+        n = len(streams)
+        seeds = seeds or [None] * (2 + 2 * n)
         normed = [layer_norm(self.ln_1, x, self.dtype) for x in streams]
-        attended = self.attn(normed, dropout_rate)
+        attended = self.attn(normed, dropout_rate, seeds[:2 + n])
         streams = [x + a for x, a in zip(streams, attended)]
-        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype)) for x in streams)
+        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype), dropout_rate, words)
+                     for words, x in zip(seeds[2 + n:], streams))
 
 
 class QuaternionPoseRepresentation(nn.Module):
@@ -155,12 +184,15 @@ def cross_entropy_with_label_smoothing(labels, logits, label_smoothing=0.0):
 
 class MIGT(nn.Module):
     def __init__(self, config, dtype=torch.float32, generator=None, param_dtype=None,
-                 remat=False):
+                 remat=False, dropout_impl='hash'):
         """dtype: the tower's compute dtype; param_dtype: what wte, wpe, the
         blocks and ln_f are stored in (default dtype). remat: recompute each
         block in the backward (torch.utils.checkpoint) instead of keeping
-        its activations."""
+        its activations. dropout_impl: 'hash' only (module docstring)."""
         super().__init__()
+        if dropout_impl != 'hash':
+            raise ValueError(f"dropout_impl={dropout_impl!r} is not ported: the port "
+                             "reproduces dropout_impl='hash' only")
         cfg = self.config = config
         d = cfg.d_model
         self.dtype = dtype
@@ -187,6 +219,11 @@ class MIGT(nn.Module):
             module.to(param_dtype)
         self.wpe.data = self.wpe.data.to(param_dtype)
 
+    def dropout_sites(self, n_streams):
+        """How many dropout seed pairs a training forward over n_streams
+        streams reads."""
+        return n_streams + self.config.n_layer * (2 + 2 * n_streams)
+
     @property
     def mask_token(self):
         return self.config.n_embeddings
@@ -209,7 +246,8 @@ class MIGT(nn.Module):
         return self.pose_embedding(torch.cat([xyz, poses[..., 3:]], -1))
 
     def forward(self, poses, input_ids, localization_tokens=None, output_poses=None, *,
-                compute_losses=False, deterministic=True, step=0, generator=None):
+                compute_losses=False, deterministic=True, step=0, generator=None,
+                dropout_seeds=None):
         """poses [B, T_p, 7]; input_ids [B, T, h, w] int; optional
         localization_tokens [B, T, h, w] and output_poses [B, T, 7].
 
@@ -217,7 +255,9 @@ class MIGT(nn.Module):
         terms (with compute_losses), pose_prediction [B, T, L, 7] (with
         localization on), hidden_states. Training (deterministic=False) draws
         the random pose multiplier from `generator`; `step` drives the
-        localization-weight schedule."""
+        localization-weight schedule. With config.dropout > 0, training
+        reads dropout_seeds: dropout_sites(n streams) pairs of uint32 words in
+        site order (module docstring)."""
         cfg = self.config
         B, T_in = input_ids.shape[:2]
         grid = tuple(input_ids.shape[2:])
@@ -268,13 +308,24 @@ class MIGT(nn.Module):
             loc_pointer = len(streams) - 1
 
         dropout_rate = 0.0 if deterministic else cfg.dropout
-        streams = tuple(x.to(self.dtype) for x in streams)
-        for block in self.h:
+        n = len(streams)
+        seeds = [None] * self.dropout_sites(n)
+        if dropout_rate > 0:
+            if dropout_seeds is None or len(dropout_seeds) != len(seeds):
+                raise ValueError(f'dropout {dropout_rate} over {n} streams needs '
+                                 f'{len(seeds)} dropout seed pairs, got '
+                                 f'{None if dropout_seeds is None else len(dropout_seeds)}')
+            seeds = [tuple(int(w) for w in pair) for pair in dropout_seeds]
+        streams = tuple(hash_dropout(words, x.to(self.dtype), dropout_rate)
+                        for words, x in zip(seeds, streams))
+        per_layer = 2 + 2 * n
+        for i, block in enumerate(self.h):
+            layer_seeds = seeds[n + i * per_layer:n + (i + 1) * per_layer]
             if self.remat and torch.is_grad_enabled():
                 streams = checkpoint(block, *streams, dropout_rate=dropout_rate,
-                                     use_reentrant=False)
+                                     seeds=layer_seeds, use_reentrant=False)
             else:
-                streams = block(*streams, dropout_rate=dropout_rate)
+                streams = block(*streams, dropout_rate=dropout_rate, seeds=layer_seeds)
         streams = [layer_norm(self.ln_f, x, self.dtype) for x in streams]
 
         output = {'hidden_states': streams}

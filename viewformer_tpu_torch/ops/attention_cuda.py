@@ -1,6 +1,6 @@
 """Branching attention: hand-written CUDA kernels and their plain twins.
 
-Counterpart of viewformer_tpu/ops/attention_pallas.py without dropout:
+Counterpart of viewformer_tpu/ops/attention_pallas.py:
 
   block_causal_attention_fwd  replaces _block_causal_kernel3 (kernel B1)
   branch_attention_fwd        replaces _branch_kernel3 (kernel B2), and the
@@ -8,6 +8,17 @@ Counterpart of viewformer_tpu/ops/attention_pallas.py without dropout:
   block_causal_attention_bwd  replaces _block_causal_bwd_kernel3 (kernel B3)
   branch_attention_bwd        replaces _branch_bwd_kernel3 and the sum over
                               branches of _fb_bwd (kernel B4)
+  block_causal_attention_dropout_fwd  replaces _block_causal_do_kernel3 (B5)
+  block_causal_attention_dropout_bwd  replaces _block_causal_do_bwd_kernel3 (B6)
+  branch_attention_dropout_fwd        replaces _branch_do_kernel3 (B7)
+  branch_attention_dropout_bwd        replaces _branch_do_bwd_kernel3 and the
+                                      sum over branches of _fbd_bwd (B8)
+
+B5-B8 are B1-B4 with inverted dropout on the softmax weights, the mask
+hashed from two uint32 seed words and each weight's global index
+(ops/dropout.py; the index spaces are the Pallas kernels', see
+bc_weight_index and branch_weight_indices), so the masks are the Pallas
+kernels' bit for bit. The dropout kernels take the one-shot form only.
 
 Operands keep the Pallas layout, [batch*heads, frames*L, dh]. No 1/sqrt(dh)
 scale, f32 scores and softmax, weights rounded to the value dtype before the
@@ -27,7 +38,10 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
+
+from .dropout import hash_keep
 
 _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
@@ -36,6 +50,9 @@ _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
 _SOURCES = ('branching_attention.cu', 'branching_attention_bwd.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
+# weights a plain dropout twin holds at a time (f32 scores, int64 indices):
+# it runs over chunks of rows, to bound memory at the training shapes
+_CHUNK_WEIGHTS = 1 << 26
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +179,180 @@ def branch_attention_bwd_plain(q, k0, v0, kb, vb, dout, L):
 
 
 # ---------------------------------------------------------------------------
+# Plain versions of the dropout kernels B5-B8
+# ---------------------------------------------------------------------------
+
+def pick_q_block(total, L):
+    """The Pallas q-tile (_pick_q_block, attention_pallas.py:38): the largest
+    multiple of L, at most 512, that divides total; None if there is none."""
+    for n_frames in range(min(512, total) // L, 0, -1):
+        if total % (n_frames * L) == 0:
+            return n_frames * L
+    return None
+
+
+def bc_weight_index(rows, TL):
+    """Global index of each weight of block-causal rows (int64 [n]),
+    [n, TL, TL]: (row*TL + query)*TL + key (_bc_weight_index,
+    attention_pallas.py:309). Taken mod 2^32 by the hash."""
+    r = torch.arange(TL, device=rows.device)
+    return (rows[:, None, None] * TL + r[:, None]) * TL + r
+
+
+def branch_weight_indices(rows, TL, L):
+    """Global indices of the weights of one-shot branch rows g (int64 [n])
+    (_branch_weight_indices, attention_pallas.py:319): rows of stride
+    TL + qb with qb = pick_q_block(TL, L). Stream-0 keys [n, TL, TL]:
+    (g*TL + query)*(TL + qb) + key; own-frame keys [n, T, L, L]: the row base
+    + TL + the key's position inside the query's q-tile."""
+    qb = pick_q_block(TL, L)
+    T = TL // L
+    r = torch.arange(TL, device=rows.device)
+    base = (rows[:, None] * TL + r) * (TL + qb)  # [n, TL]
+    own = TL + (torch.arange(T, device=rows.device) * L) % qb  # [T]
+    old = base[:, :, None] + r
+    new = base.reshape(-1, T, L, 1) + own[:, None, None] + torch.arange(L, device=rows.device)
+    return old, new
+
+
+def _row_chunks(rows, weights_per_row):
+    step = max(1, _CHUNK_WEIGHTS // weights_per_row)
+    return [slice(r, min(r + step, rows)) for r in range(0, rows, step)]
+
+
+def _arange(rows, device):
+    return torch.arange(rows.start, rows.stop, device=device)
+
+
+def block_causal_attention_dropout_plain(q, k, v, L, seeds, rate, return_lse=False):
+    """block_causal_attention_plain with inverted dropout on the f32 softmax
+    weights before their rounding to the value dtype
+    (_block_causal_do_kernel3): W * keep, keep = hash_keep(seeds,
+    bc_weight_index). The log-sum-exp is of the undropped scores."""
+    BH, TL, _ = q.shape
+    frames = torch.arange(TL, device=q.device) // L
+    allowed = frames[:, None] >= frames[None, :]
+    outs, lses = [], []
+    for rows in _row_chunks(BH, TL * TL):
+        scores = torch.einsum('bqd,bkd->bqk', _wide(q[rows]), _wide(k[rows]))
+        scores = scores.masked_fill_(~allowed, _NEG_INF)
+        keep = hash_keep(seeds, bc_weight_index(_arange(rows, q.device), TL), rate)
+        w = torch.softmax(scores, -1).mul_(keep.to(scores.dtype))
+        outs.append(torch.einsum('bqk,bkd->bqd', w.to(v.dtype), v[rows]).to(q.dtype))
+        if return_lse:
+            lses.append(torch.logsumexp(scores, -1))
+    out = torch.cat(outs)
+    return (out, torch.cat(lses)) if return_lse else out
+
+
+def block_causal_attention_dropout_bwd_plain(q, k, v, dout, L, seeds, rate):
+    """(dq, dk, dv) of block_causal_attention_dropout_plain, as
+    _block_causal_do_bwd_kernel3 computes them: dP' = (dO V^T) * keep,
+    dS = W (dP' - rowsum(dP' W)), dV = (W * keep)^T dO, dS and W * keep
+    rounded to the operand dtype before the products."""
+    BH, TL, _ = q.shape
+    frames = torch.arange(TL, device=q.device) // L
+    allowed = frames[:, None] >= frames[None, :]
+    grads = []
+    for rows in _row_chunks(BH, TL * TL):
+        qf, kf, vf, df = (_wide(x[rows]) for x in (q, k, v, dout))
+        w = torch.einsum('bqd,bkd->bqk', qf, kf).masked_fill_(~allowed, _NEG_INF).softmax(-1)
+        keep = hash_keep(seeds, bc_weight_index(_arange(rows, q.device), TL), rate).to(w.dtype)
+        ds = torch.einsum('bqd,bkd->bqk', df, vf).mul_(keep)
+        ds = _round(ds.sub_((ds * w).sum(-1, keepdim=True)).mul_(w), k.dtype)
+        dq = torch.einsum('bqk,bkd->bqd', ds, kf).to(q.dtype)
+        dk = torch.einsum('bqk,bqd->bkd', ds, qf).to(k.dtype)
+        del ds
+        dv = torch.einsum('bqk,bqd->bkd', _round(w.mul_(keep), dout.dtype), df).to(v.dtype)
+        grads.append((dq, dk, dv))
+    return tuple(torch.cat([g[i] for g in grads]) for i in range(3))
+
+
+def _branch_chunk_weights(q, k0, kb, L, rows, seeds, rate):
+    """For one chunk of one-shot branch rows: the f32 joint softmax weights
+    and keep factors over [stream-0 keys | own-frame keys], each
+    [n, T, L, TL + L], and the chunk's rows of K0 (row g % BH0)."""
+    G, TL, dh = q.shape
+    T = TL // L
+    g = _arange(rows, q.device)
+    n = len(g)
+    k0r = _wide(k0[g % k0.shape[0]])
+    qf = _wide(q[rows]).reshape(n, T, L, dh)
+    allowed = (torch.arange(TL, device=q.device) // L)[None, :] < \
+        torch.arange(T, device=q.device)[:, None]  # [T, TL]
+    scores_old = torch.einsum('btld,bkd->btlk', qf, k0r).masked_fill_(~allowed[:, None],
+                                                                      _NEG_INF)
+    scores_new = torch.einsum('btld,btmd->btlm', qf, _wide(kb[rows]).reshape(n, T, L, dh))
+    joint = torch.cat([scores_old, scores_new], -1)
+    del scores_old, scores_new
+    idx_old, idx_new = branch_weight_indices(g, TL, L)
+    keep = torch.cat([hash_keep(seeds, idx_old, rate).reshape(n, T, L, TL),
+                      hash_keep(seeds, idx_new, rate)], -1).to(joint.dtype)
+    return joint, keep, k0r
+
+
+def branch_attention_dropout_plain(q, k0, v0, kb, vb, L, seeds, rate, return_lse=False):
+    """The one-shot branch_attention_plain (first_q_frame=0, n_old=T) with
+    inverted dropout on the f32 joint softmax weights before their rounding
+    (_branch_do_kernel3): keep = hash_keep(seeds, branch_weight_indices).
+    The log-sum-exp is of the undropped joint scores."""
+    G, TL, dh = q.shape
+    T = TL // L
+    outs, lses = [], []
+    for rows in _row_chunks(G, TL * (TL + L)):
+        joint, keep, _ = _branch_chunk_weights(q, k0, kb, L, rows, seeds, rate)
+        n = joint.shape[0]
+        w = torch.softmax(joint, -1).mul_(keep)
+        v0r = v0[_arange(rows, q.device) % v0.shape[0]]
+        out = torch.einsum('btlk,bkd->btld', w[..., :TL].to(v0.dtype), v0r)
+        out = out + torch.einsum('btlm,btmd->btld', w[..., TL:].to(vb.dtype),
+                                 vb[rows].reshape(n, T, L, dh))
+        outs.append(out.reshape(n, TL, dh).to(q.dtype))
+        if return_lse:
+            lses.append(torch.logsumexp(joint, -1).reshape(n, TL))
+    out = torch.cat(outs)
+    return (out, torch.cat(lses)) if return_lse else out
+
+
+def branch_attention_dropout_bwd_plain(q, k0, v0, kb, vb, dout, L, seeds, rate):
+    """(dq, dk0, dv0, dkb, dvb) of branch_attention_dropout_plain, as
+    _branch_do_bwd_kernel3 computes them (one rowsum over both key sets of
+    the joint softmax, dP' = (dO V^T) * keep, dV = (W * keep)^T dO), with
+    dk0/dv0 summed over the branches that share each row in f32 before the
+    cast (_fbd_bwd, attention_pallas.py:708-709)."""
+    G, TL, dh = q.shape
+    BH0 = k0.shape[0]
+    T = TL // L
+    dk0 = torch.zeros(k0.shape, dtype=_wide(k0).dtype, device=q.device)
+    dv0 = torch.zeros_like(dk0)
+    grads = []
+    for rows in _row_chunks(G, TL * (TL + L)):
+        joint, keep, k0r = _branch_chunk_weights(q, k0, kb, L, rows, seeds, rate)
+        n = joint.shape[0]
+        shared = _arange(rows, q.device) % BH0
+        w = torch.softmax(joint, -1)
+        del joint
+        qf, kbf, vbf, df = (_wide(x[rows]).reshape(n, T, L, dh) for x in (q, kb, vb, dout))
+        ds = torch.cat([torch.einsum('btld,bkd->btlk', df, _wide(v0[shared])),
+                        torch.einsum('btld,btmd->btlm', df, vbf)], -1).mul_(keep)
+        ds = ds.sub_((ds * w).sum(-1, keepdim=True)).mul_(w)
+        ds_old, ds_new = _round(ds[..., :TL], k0.dtype), _round(ds[..., TL:], kb.dtype)
+        del ds
+        wk = w.mul_(keep)
+        w_old, w_new = _round(wk[..., :TL], dout.dtype), _round(wk[..., TL:], dout.dtype)
+        dq = torch.einsum('btlk,bkd->btld', ds_old, k0r) + \
+            torch.einsum('btlm,btmd->btld', ds_new, kbf)
+        dk0.index_add_(0, shared, torch.einsum('btlk,btld->bkd', ds_old, qf))
+        dv0.index_add_(0, shared, torch.einsum('btlk,btld->bkd', w_old, df))
+        dkb = torch.einsum('btlm,btld->btmd', ds_new, qf)
+        dvb = torch.einsum('btlm,btld->btmd', w_new, df)
+        grads.append(tuple(x.reshape(n, TL, dh) for x in (dq, dkb, dvb)))
+    dq, dkb, dvb = (torch.cat([g[i] for g in grads]) for i in range(3))
+    return (dq.to(q.dtype), dk0.to(k0.dtype), dv0.to(v0.dtype), dkb.to(kb.dtype),
+            dvb.to(vb.dtype))
+
+
+# ---------------------------------------------------------------------------
 # Build and bind
 # ---------------------------------------------------------------------------
 
@@ -236,11 +427,16 @@ def _kernels():
     global _functions
     if _functions is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        drop = [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2  # seed words, rate, scale
         signatures = {
             'block_causal_attention_fwd': [p] * 5 + [i] * 2 + [p],
             'branch_attention_fwd': [p] * 7 + [i] * 6 + [p],
             'block_causal_attention_bwd': [p] * 9 + [i] * 2 + [p],
             'branch_attention_bwd': [p] * 13 + [i] * 3 + [p],
+            'block_causal_attention_dropout_fwd': [p] * 5 + [i] * 2 + drop + [p],
+            'branch_attention_dropout_fwd': [p] * 7 + [i] * 4 + drop + [p],
+            'block_causal_attention_dropout_bwd': [p] * 9 + [i] * 2 + drop + [p],
+            'branch_attention_dropout_bwd': [p] * 13 + [i] * 4 + drop + [p],
         }
         libs = [ctypes.CDLL(path) for path in build().values()]
         functions = {}
@@ -275,6 +471,26 @@ def _check_lse(name, lse, rows, device):
             or tuple(lse.shape) != tuple(rows)):
         raise ValueError(f'{name}: lse must be contiguous f32 {tuple(rows)} on {device}, got '
                          f'{lse.dtype} {tuple(lse.shape)} on {lse.device}')
+
+
+def _dropout_args(name, seeds, rate):
+    """(s0, s1, rate, scale) for a dropout kernel: the seed words mod 2^32,
+    and rate and 1/(1 - rate) (in double) rounded to f32, as _hash_keep."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f'{name}: dropout rate must be in (0, 1), got {rate}')
+    s0, s1 = (int(w) & 0xFFFFFFFF for w in seeds)
+    return s0, s1, float(np.float32(rate)), float(np.float32(1.0 / (1.0 - rate)))
+
+
+def _check_one_shot_branch(name, q, k0, v0, kb, vb, L, *more):
+    G, TL, _ = q.shape
+    BH0 = k0.shape[0]
+    if (any(t.shape != q.shape for t in (kb, vb) + more) or v0.shape != k0.shape
+            or k0.shape[1] != TL or TL % L or G % BH0 or G + BH0 > 65535):
+        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k0 {tuple(k0.shape)}, '
+                         f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)}, '
+                         f'others {[tuple(t.shape) for t in more]}')
+    return G, BH0, TL
 
 
 def _launch(name, *args):
@@ -385,14 +601,8 @@ def branch_attention_bwd(q, k0, v0, kb, vb, out, dout, lse, L):
     if not _on_device('branch_attention_bwd', q):
         return branch_attention_bwd_plain(q, k0, v0, kb, vb, dout, L)
     _check_operands('branch_attention_bwd', L, q, k0, v0, kb, vb, out, dout)
-    G, TL, _ = q.shape
-    BH0 = k0.shape[0]
-    if (any(t.shape != q.shape for t in (kb, vb, out, dout)) or v0.shape != k0.shape
-            or k0.shape[1] != TL or TL % L or G % BH0 or G + BH0 > 65535):
-        raise ValueError(
-            f'branch_attention_bwd: shapes q {tuple(q.shape)}, k0 {tuple(k0.shape)}, '
-            f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)}, '
-            f'out {tuple(out.shape)}, dout {tuple(dout.shape)}')
+    G, BH0, TL = _check_one_shot_branch('branch_attention_bwd', q, k0, v0, kb, vb, L, out,
+                                        dout)
     _check_lse('branch_attention_bwd', lse, (G, TL), q.device)
     dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
     dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
@@ -406,8 +616,99 @@ def branch_attention_bwd(q, k0, v0, kb, vb, out, dout, lse, L):
     return dq, dk0, dv0, dkb, dvb
 
 
+def block_causal_attention_dropout_fwd(q, k, v, L, seeds, rate, return_lse=False):
+    """Kernel B5: block_causal_attention_fwd with inverted dropout on the
+    softmax weights; seeds are the two uint32 words, rate in (0, 1) (see
+    block_causal_attention_dropout_plain). The log-sum-exp is B1's."""
+    name = 'block_causal_attention_dropout_fwd'
+    if not _on_device(name, q):
+        return block_causal_attention_dropout_plain(q, k, v, L, seeds, rate, return_lse)
+    _check_operands(name, L, q, k, v)
+    BH, TL, _ = q.shape
+    if k.shape != q.shape or v.shape != q.shape or TL % L or BH > 65535:
+        raise ValueError(f'{name}: shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}')
+    drop = _dropout_args(name, seeds, rate)
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, TL), dtype=torch.float32, device=q.device) if return_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _ptr(lse), BH,
+                TL // L, *drop, stream)
+    block_causal_attention_dropout_fwd.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, seeds, rate, return_lse=False):
+    """Kernel B7: the one-shot branch_attention_fwd (first_q_frame=0,
+    n_old=T) with inverted dropout on the joint softmax weights. q/kb/vb
+    [G, T*L, dh], k0/v0 [BH0, T*L, dh] (see branch_attention_dropout_plain)."""
+    name = 'branch_attention_dropout_fwd'
+    if not _on_device(name, q):
+        return branch_attention_dropout_plain(q, k0, v0, kb, vb, L, seeds, rate, return_lse)
+    _check_operands(name, L, q, k0, v0, kb, vb)
+    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L)
+    drop = _dropout_args(name, seeds, rate)
+    out = torch.empty_like(q)
+    lse = torch.empty((G, TL), dtype=torch.float32, device=q.device) if return_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, q.data_ptr(), k0.data_ptr(), v0.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+                out.data_ptr(), _ptr(lse), G, TL // L, BH0, pick_q_block(TL, L), *drop, stream)
+    branch_attention_dropout_fwd.launches += 1
+    return (out, lse) if return_lse else out
+
+
+def block_causal_attention_dropout_bwd(q, k, v, out, dout, lse, L, seeds, rate):
+    """Kernel B6: (dq, dk, dv) of block_causal_attention_dropout_fwd at its
+    output `out` and log-sum-exp `lse`, for the output gradient dout, the
+    mask regenerated from (seeds, rate) (see
+    block_causal_attention_dropout_bwd_plain)."""
+    name = 'block_causal_attention_dropout_bwd'
+    if not _on_device(name, q):
+        return block_causal_attention_dropout_bwd_plain(q, k, v, dout, L, seeds, rate)
+    _check_operands(name, L, q, k, v, out, dout)
+    BH, TL, _ = q.shape
+    if any(t.shape != q.shape for t in (k, v, out, dout)) or TL % L or 2 * BH > 65535:
+        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, '
+                         f'v {tuple(v.shape)}, out {tuple(out.shape)}, dout {tuple(dout.shape)}')
+    _check_lse(name, lse, (BH, TL), q.device)
+    drop = _dropout_args(name, seeds, rate)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv)), BH,
+                TL // L, *drop, stream)
+    block_causal_attention_dropout_bwd.launches += 1
+    return dq, dk, dv
+
+
+def branch_attention_dropout_bwd(q, k0, v0, kb, vb, out, dout, lse, L, seeds, rate):
+    """Kernel B8: (dq, dk0, dv0, dkb, dvb) of branch_attention_dropout_fwd at
+    its output `out` and log-sum-exp `lse`, for the output gradient dout;
+    dk0/dv0 summed over the branches that share each row (see
+    branch_attention_dropout_bwd_plain)."""
+    name = 'branch_attention_dropout_bwd'
+    if not _on_device(name, q):
+        return branch_attention_dropout_bwd_plain(q, k0, v0, kb, vb, dout, L, seeds, rate)
+    _check_operands(name, L, q, k0, v0, kb, vb, out, dout)
+    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L, out, dout)
+    _check_lse(name, lse, (G, TL), q.device)
+    drop = _dropout_args(name, seeds, rate)
+    dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
+    dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, *(t.data_ptr() for t in (q, k0, v0, kb, vb, out, dout, lse, dq, dk0, dv0,
+                                               dkb, dvb)),
+                G, BH0, TL // L, pick_q_block(TL, L), *drop, stream)
+    branch_attention_dropout_bwd.launches += 1
+    return dq, dk0, dv0, dkb, dvb
+
+
 KERNELS = (block_causal_attention_fwd, branch_attention_fwd, block_causal_attention_bwd,
-           branch_attention_bwd)
+           branch_attention_bwd, block_causal_attention_dropout_fwd,
+           block_causal_attention_dropout_bwd, branch_attention_dropout_fwd,
+           branch_attention_dropout_bwd)
 
 
 def reset_launch_counts():

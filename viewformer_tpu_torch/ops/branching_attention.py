@@ -11,7 +11,10 @@ model's layout; `multi_end_block_attention` is the dispatch the model calls,
 which runs the CUDA kernels on the card (ops/attention_cuda.py). Where a
 gradient is wanted it goes through the autograd Functions BlockCausalAttention
 and BranchAttention: forward kernels B1/B2 with the row log-sum-exp, backward
-kernels B3/B4.
+kernels B3/B4. With attention dropout, BlockCausalAttentionDropout and
+BranchAttentionDropout: kernels B5/B7 forward and B6/B8 backward, which hash
+the dropout mask from two uint32 seed words and the weights' indices in both
+directions, so nothing but the seeds is kept for the backward.
 """
 import torch
 
@@ -85,23 +88,84 @@ class BranchAttention(torch.autograd.Function):
         return grads + (None,)
 
 
-def multi_end_block_attention(kset, vset, qset, dropout_rate=0.0):
+class BlockCausalAttentionDropout(torch.autograd.Function):
+    """BlockCausalAttention with inverted dropout on the softmax weights:
+    forward kernel B5, backward kernel B6; seeds (two uint32 words) and rate
+    are plain arguments kept on ctx, and the backward regenerates the mask
+    from them. Counterpart of fused_block_causal_attention_dropout
+    (attention_pallas.py:645-671)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, L, seeds, rate):
+        out, lse = attention_cuda.block_causal_attention_dropout_fwd(q, k, v, L, seeds, rate,
+                                                                     return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.L, ctx.seeds, ctx.rate = L, seeds, rate
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = attention_cuda.block_causal_attention_dropout_bwd(
+            q, k, v, out, dout.contiguous(), lse, ctx.L, ctx.seeds, ctx.rate)
+        return grads + (None, None, None)
+
+
+class BranchAttentionDropout(torch.autograd.Function):
+    """BranchAttention with inverted dropout on the joint softmax weights:
+    forward kernel B7, backward kernel B8 (dk0/dv0 summed over the branches).
+    Counterpart of fused_branch_attention_dropout
+    (attention_pallas.py:674-715)."""
+
+    @staticmethod
+    def forward(ctx, q, k0, v0, kb, vb, L, seeds, rate):
+        out, lse = attention_cuda.branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, seeds, rate,
+                                                               return_lse=True)
+        ctx.save_for_backward(q, k0, v0, kb, vb, out, lse)
+        ctx.L, ctx.seeds, ctx.rate = L, seeds, rate
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        q, k0, v0, kb, vb, out, lse = ctx.saved_tensors
+        grads = attention_cuda.branch_attention_dropout_bwd(
+            q, k0, v0, kb, vb, out, dout.contiguous(), lse, ctx.L, ctx.seeds, ctx.rate)
+        return grads + (None, None, None)
+
+
+def multi_end_block_attention(kset, vset, qset, dropout_rate=0.0, seeds=None):
     """Full branching attention over a tuple of streams, stream 0 first, each
     [B, H, T, L, dh]. Returns a tuple of per-stream outputs.
 
     When autograd records (grad mode on and an operand requires grad), the
-    streams go through BlockCausalAttention and BranchAttention; otherwise
-    through the forward kernels alone, with no log-sum-exp. Attention
-    dropout is not ported: dropout_rate > 0 raises."""
-    if dropout_rate > 0:
-        raise NotImplementedError(
-            f'attention dropout (rate {dropout_rate}) is not ported: it needs the '
-            'in-kernel hash-dropout kernels B5-B8 (attention_pallas.py:331-441). '
-            'Train with dropout=0.0.')
+    streams go through the autograd Functions; otherwise through the forward
+    kernels alone, with no log-sum-exp. dropout_rate > 0 drops attention
+    weights with the hash mask of seeds = (stream-0 words, branch words),
+    two pairs of uint32 words, as the JAX dispatch's rng0/rng1
+    (branching_attention.py:306-308): kernels B5-B8. At rate 0 the seeds are
+    not read and the streams take B1-B4."""
     B, H, T, L, dh = qset[0].shape
     r0 = lambda x: x.reshape(B * H, T * L, dh).contiguous()  # noqa: E731
     k0, v0 = r0(kset[0]), r0(vset[0])
-    if torch.is_grad_enabled() and any(x.requires_grad for x in qset + kset + vset):
+    grad = torch.is_grad_enabled() and any(x.requires_grad for x in qset + kset + vset)
+    if dropout_rate > 0:
+        if seeds is None:
+            raise ValueError(f'attention dropout at rate {dropout_rate} needs seeds: '
+                             '(stream-0 words, branch words)')
+        s0, s1 = seeds
+        if grad:
+            causal = lambda q: BlockCausalAttentionDropout.apply(  # noqa: E731
+                q, k0, v0, L, s0, dropout_rate)
+            branch = lambda q, kb, vb: BranchAttentionDropout.apply(  # noqa: E731
+                q, k0, v0, kb, vb, L, s1, dropout_rate)
+        else:
+            causal = lambda q: attention_cuda.block_causal_attention_dropout_fwd(  # noqa: E731
+                q, k0, v0, L, s0, dropout_rate)
+            branch = lambda q, kb, vb: attention_cuda.branch_attention_dropout_fwd(  # noqa: E731
+                q, k0, v0, kb, vb, L, s1, dropout_rate)
+    elif grad:
         causal = lambda q: BlockCausalAttention.apply(q, k0, v0, L)  # noqa: E731
         branch = lambda q, kb, vb: BranchAttention.apply(q, k0, v0, kb, vb, L)  # noqa: E731
     else:

@@ -9,8 +9,12 @@ param_dtype=f32)), with each block recomputed in the backward
 (torch.utils.checkpoint), as JAX's remat=True with no policy.
 
 On the card the attention runs kernels B1/B2 forward and B3/B4 backward
-(ops/branching_attention.py). Attention dropout (kernels B5-B8) is not
-ported: a config with dropout > 0 raises in the train step.
+(ops/branching_attention.py); with config.dropout > 0 (the default recipe,
+0.1) kernels B5/B7 and B6/B8, which drop attention weights in the kernel.
+Dropout is the JAX package's dropout_impl='hash': each step draws every
+dropout site's seed words from the step's torch.Generator before the forward
+(the counterpart of JAX's fold_in(rng, step)) and passes them in, so the
+remat recompute regenerates the same masks.
 
 The update count lives in the train state and drives both the learning rate
 and the localization-weight schedule. As in optax, the learning rate of an
@@ -129,12 +133,13 @@ class TransformerTrainState:
 
 
 def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device=None,
-                           remat=True, total_steps=None, warmup_steps=2000):
+                           remat=True, total_steps=None, warmup_steps=2000,
+                           dropout_impl='hash'):
     """-> (model, TransformerTrainState): MIGT with f32 parameters drawn from
     `generator`, computing in `dtype`, on `device`; remat recomputes each
-    block in the backward."""
+    block in the backward. dropout_impl: 'hash' only; 'rng' raises."""
     model = MIGT(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
-                 remat=remat).to(device or 'cpu')
+                 remat=remat, dropout_impl=dropout_impl).to(device or 'cpu')
     optimizer, lr_schedule = create_transformer_optimizer(model, config, total_steps,
                                                           warmup_steps)
     return model, TransformerTrainState(optimizer, lr_schedule)
@@ -155,20 +160,34 @@ def _metrics(out, config, tokens, keys):
     return {key: value.detach() for key, value in metrics.items()}
 
 
+def draw_dropout_seeds(model, generator=None):
+    """One train step's dropout seeds: model.dropout_sites(n) pairs of uint32
+    words for the training forward's n streams (context, generate, and
+    localize where localization is on), drawn from `generator` (a CPU
+    torch.Generator; None: torch's default one)."""
+    n_streams = 2 + model.use_localization
+    words = torch.randint(0, 1 << 32, (model.dropout_sites(n_streams), 2), generator=generator,
+                          dtype=torch.int64)
+    return words.tolist()
+
+
 def make_transformer_train_step(model, config):
     """-> train_step(state, batch, generator=None) -> (state, metrics).
     batch = (poses [B, S, 7], tokens [B, S, h, w]) on the model's device;
-    generator draws the random pose multiplier. One AdamW update of the
-    model's parameters in place; state.step advances by one. Metrics are 0-d
-    tensors on the device (reading them waits for the step)."""
+    generator (a CPU torch.Generator) draws the step's dropout seeds
+    (draw_dropout_seeds, when config.dropout > 0), then the random pose
+    multiplier. One AdamW update of the model's parameters in place;
+    state.step advances by one. Metrics are 0-d tensors on the device
+    (reading them waits for the step)."""
     def train_step(state, batch, generator=None):
         poses, tokens = batch
         lr = state.lr_schedule(state.step)
         for group in state.optimizer.param_groups:
             group['lr'] = lr
         state.optimizer.zero_grad(set_to_none=True)
+        seeds = draw_dropout_seeds(model, generator) if config.dropout > 0 else None
         out = model(poses, tokens, compute_losses=True, deterministic=False, step=state.step,
-                    generator=generator)
+                    generator=generator, dropout_seeds=seeds)
         loss = out['loss'].mean()
         loss.backward()
         if config.gradient_clip_val and config.gradient_clip_val > 0:
