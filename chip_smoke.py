@@ -5,12 +5,17 @@
 
 Refuses to run without a CUDA device. Phases, each printing a JSON line:
   1. the card's name and power limit; build the CUDA kernels from
-     viewformer_tpu_torch/csrc (one nvcc a source, in parallel, sm_90a) and
-     print the build time;
+     viewformer_tpu_torch/csrc (one nvcc a source, in parallel, sm_90a),
+     print the build time and check that ptxas reports no register spills;
   2. each kernel against its plain PyTorch version on the card, at the main
-     paths' shapes, with CUDA-event times of both: the forward kernels B1/B2
-     at the serving shapes and, with their log-sum-exp output, at the
-     training shapes; the backward kernels B3/B4 at the training shapes; the
+     paths' shapes, with CUDA-event times of both, its bound (the least time
+     of the card for its FLOPs and bytes, ops/attention_cost.py) and the
+     time of torch's scaled_dot_product_attention computing the same
+     function (library_ms, a yardstick the port never calls): the forward
+     kernels B1/B2 at the serving shapes (B1 at odd T = 19; B2's cache form
+     at n = 19, 0, 1 and 7; its one-shot form at S = 1 and 2 branches)
+     and, with their log-sum-exp output, at the training shapes (B1 at even
+     T = 20); the backward kernels B3/B4 at the training shapes; the
      dropout kernels B5-B8 at the training shapes (rate 0.1, fixed seed
      words), then an exact probe of B5's and B7's dropout masks: with q = k
      = 0 and V the identity on one key frame, the output's nonzeros are that
@@ -39,6 +44,7 @@ Any failed check raises, so the exit code is not 0. The last line is
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -120,44 +126,132 @@ def time_ms(fn, n=20):
     return statistics.median(times)
 
 
+def visible_frames(name, q, args, L):
+    """(first_q_frame, n_old) of a branch kernel's call: the forward takes
+    them as arguments, the others run the one-shot form."""
+    return (args[1], args[2]) if name == 'branch_attention_fwd' else (0, q.shape[1] // L)
+
+
+def work(name, tensors, args, L, lse=False):
+    """(FLOPs, bytes, bound ms, bound by) of one call of kernel `name` on
+    these inputs (viewformer_tpu_torch.ops.attention_cost)."""
+    from viewformer_tpu_torch.ops import attention_cost as cost
+
+    q = tensors[0]
+    backward = name.endswith('_bwd')
+    if name.startswith('block_causal'):
+        flops, nbytes = cost.block_causal_cost(q.shape[0], q.shape[1] // L, L, q.shape[2],
+                                               backward, lse)
+    else:
+        k0 = tensors[1]
+        first, n_old = visible_frames(name, q, args, L)
+        flops, nbytes = cost.branch_cost(q.shape[0], q.shape[1] // L, k0.shape[0],
+                                         k0.shape[1] // L, L, q.shape[2], first, n_old,
+                                         backward, lse)
+    return (flops, nbytes) + cost.bound_ms(flops, nbytes)
+
+
+def sdpa_operands(name, tensors, args, L):
+    """q, k, v [N, 1, rows, dh] and the boolean frame mask (True: attend) with
+    which one torch scaled_dot_product_attention call (scale 1) computes
+    kernel `name`'s function: for a branch kernel, each branch's keys are its
+    K0/V0 row followed by its own kb/vb rows."""
+    q = tensors[0]
+    if name.startswith('block_causal'):
+        k, v = tensors[1:3]
+        frames = torch.arange(q.shape[1], device=q.device) // L
+        mask = frames[:, None] >= frames[None, :]
+    else:
+        k0, v0, kb, vb = tensors[1:5]
+        first, n_old = visible_frames(name, q, args, L)
+        q_frame = torch.arange(q.shape[1], device=q.device) // L
+        k_frame = torch.arange(k0.shape[1], device=q.device) // L
+        mask = torch.cat([k_frame[None, :] < torch.clamp(first + q_frame, max=n_old)[:, None],
+                          q_frame[:, None] == q_frame[None, :]], 1)
+        rep = q.shape[0] // k0.shape[0]
+        k = torch.cat([k0.repeat(rep, 1, 1), kb], 1)
+        v = torch.cat([v0.repeat(rep, 1, 1), vb], 1)
+    return q[:, None], k[:, None], v[:, None], mask
+
+
+def library_ms(name, tensors, args, L, n=10):
+    """CUDA-event ms of torch's scaled_dot_product_attention computing kernel
+    `name`'s function on the same inputs, operands prepared outside the
+    timed window (with dropout_p = RATE for a dropout kernel); for a
+    backward kernel, forward and backward less forward. A yardstick only:
+    the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, v, mask = sdpa_operands(name, tensors, args, L)
+    p = RATE if 'dropout' in name else 0.0
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, dropout_p=p, scale=1.0)
+
+    if not name.endswith('_bwd'):
+        return time_ms(lambda: sdpa(q, k, v), n)
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    dout = torch.randn_like(q)
+    fwd = time_ms(lambda: sdpa(q, k, v), n)
+    both = time_ms(lambda: torch.autograd.grad(sdpa(q, k, v), (q, k, v), dout), n)
+    return both - fwd
+
+
+def yardsticks(name, tensors, args, L, lse=False):
+    """The bound and library keys of a kernel's record."""
+    flops, nbytes, bound, bound_by = work(name, tensors, args, L, lse)
+    return {'flops': flops, 'bytes': nbytes, 'bound_ms': bound, 'bound_by': bound_by,
+            'library_ms': library_ms(name, tensors, args, L)}
+
+
 def kernel_checks(ac, log):
-    """Phase 2. Returns {kernel name: (max_abs_err, ms, plain_ms)}."""
+    """Phase 2. Returns {kernel name: record of its main-path shape}."""
     gen = torch.Generator(device='cuda').manual_seed(0)
     rand = lambda *shape: torch.randn(shape, generator=gen, device='cuda').to(torch.bfloat16)  # noqa: E731
     BH, L, dh = B * 12, 64, 64
-    cases = [
-        ('block_causal_attention_fwd', 'prefill: T=19 context frames',
-         ac.block_causal_attention_fwd, ac.block_causal_attention_plain,
-         (rand(BH, 19 * L, dh), rand(BH, 19 * L, dh), rand(BH, 19 * L, dh)), (L,)),
-        ('branch_attention_fwd', 'cache form: one query frame over a 20-frame cache, n=19',
-         ac.branch_attention_fwd, ac.branch_attention_plain,
-         (rand(BH, L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh),
-          rand(BH, L, dh), rand(BH, L, dh)), (L, 19, 19)),
-        ('branch_attention_fwd', 'one-shot form: S=2 branches, T=20',
-         ac.branch_attention_fwd, ac.branch_attention_plain,
-         (rand(2 * BH, 20 * L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh),
-          rand(2 * BH, 20 * L, dh), rand(2 * BH, 20 * L, dh)), (L, 0, 20)),
-    ]
+
+    def cache_form(n):  # one query frame over a 20-frame cache, n frames valid
+        return ((rand(BH, L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh),
+                 rand(BH, L, dh), rand(BH, L, dh)), (L, n, n))
+
+    def one_shot(S):
+        return ((rand(S * BH, 20 * L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh),
+                 rand(S * BH, 20 * L, dh), rand(S * BH, 20 * L, dh)), (L, 0, 20))
+
+    cases = [('block_causal_attention_fwd', 'prefill: T=19 context frames (odd T)',
+              (rand(BH, 19 * L, dh), rand(BH, 19 * L, dh), rand(BH, 19 * L, dh)), (L,))]
+    cases += [('branch_attention_fwd', f'cache form: one query frame over a 20-frame cache, '
+               f'n={n}') + cache_form(n) for n in (19, 0, 1, 7)]
+    cases += [('branch_attention_fwd', f'one-shot form: S={S} branches, T=20') + one_shot(S)
+              for S in (1, 2)]
     results = {}
-    for name, form, kernel, plain, tensors, args in cases:
-        out = kernel(*tensors, *args)
+    for name, form, tensors, args in cases:
+        kernel, plain = getattr(ac, name), getattr(ac, name.replace('_fwd', '_plain'))
+        out, lse = kernel(*tensors, *args, return_lse=True)
         torch.cuda.synchronize()
-        ref = plain(*(t.float() for t in tensors), *args)
+        ref, ref_lse = plain(*(t.float() for t in tensors), *args, return_lse=True)
         err = (out.float() - ref).abs().max().item()
         rel = err / ref.abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        finite = torch.isfinite(out).all().item()
+        del out, lse, ref, ref_lse
         ms = time_ms(lambda: kernel(*tensors, *args))
         plain_ms = time_ms(lambda: plain(*tensors, *args))
-        emit({'phase': 'kernel', 'name': name, 'form': form,
-              'shapes': [list(t.shape) for t in tensors], 'max_abs_err': err,
-              'rel_err': rel, 'tol': KERNEL_TOL, 'ms': ms, 'plain_ms': plain_ms}, log)
-        check(torch.isfinite(out).all().item(), f'{name} ({form}): non-finite output')
-        check(rel <= KERNEL_TOL, f'{name} ({form}): rel err {rel} > {KERNEL_TOL}')
+        record = {'phase': 'kernel', 'name': name, 'form': form,
+                  'shapes': [list(t.shape) for t in tensors], 'max_abs_err': err,
+                  'rel_err': rel, 'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err,
+                  'lse_tol': LSE_TOL, 'ms': ms, 'plain_ms': plain_ms}
         # the first case of each kernel is the serving path's shape
-        if name not in results:
-            results[name] = [err, ms, plain_ms]
-        results[name][0] = max(results[name][0], err)
-        del out, ref
-    torch.cuda.empty_cache()
+        main = name not in results
+        if main:
+            record.update(yardsticks(name, tensors, args, L))
+        emit(record, log)
+        check(finite, f'{name} ({form}): non-finite output')
+        check(rel <= KERNEL_TOL, f'{name} ({form}): rel err {rel} > {KERNEL_TOL}')
+        check(lse_err <= LSE_TOL, f'{name} ({form}): lse err {lse_err} > {LSE_TOL}')
+        if main:
+            results[name] = record
+        results[name]['max_abs_err'] = max(results[name]['max_abs_err'], err)
     results.update(training_kernel_checks(ac, rand, log))
     dropout_probes(ac, log)
     return results
@@ -168,7 +262,7 @@ def training_kernel_checks(ac, rand, log):
     H=12, S=2 branches): B1/B2 and B5/B7 (rate 0.1, seed words WORDS) with
     the log-sum-exp, then B3/B4 and B6/B8 from the same bf16 inputs (out and
     lse from the forward) against their plain twins in f32. Returns
-    {kernel name: (max_abs_err, ms, plain_ms)} for B3-B8."""
+    {kernel name: record} for B3-B8."""
     BH, T, L = TRAIN_B * 12, 20, 64
     q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
     qb, kb, vb, doutb = (rand(2 * BH, T * L, 64) for _ in range(4))
@@ -197,15 +291,17 @@ def training_kernel_checks(ac, rand, log):
         del ref, ref_lse
         ms = time_ms(lambda: fwd(*inputs, *args, return_lse=True))
         plain_ms = time_ms(lambda: fwd_plain(*inputs, *args, return_lse=True), n=5)
-        emit({'phase': 'kernel', 'name': name, 'form': 'training: with log-sum-exp',
-              'shapes': [list(t.shape) for t in inputs], 'max_abs_err': err, 'rel_err': rel,
-              'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err, 'lse_tol': LSE_TOL, 'ms': ms,
-              'plain_ms': plain_ms}, log)
+        record = {'phase': 'kernel', 'name': name, 'form': 'training: with log-sum-exp',
+                  'shapes': [list(t.shape) for t in inputs], 'max_abs_err': err,
+                  'rel_err': rel, 'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err,
+                  'lse_tol': LSE_TOL, 'ms': ms, 'plain_ms': plain_ms,
+                  **yardsticks(name, inputs, args, L, lse=True)}
+        emit(record, log)
         check(torch.isfinite(out).all().item(), f'{name} (training): non-finite output')
         check(rel <= KERNEL_TOL, f'{name} (training): rel err {rel} > {KERNEL_TOL}')
         check(lse_err <= LSE_TOL, f'{name}: lse err {lse_err} > {LSE_TOL}')
         if 'dropout' in name:
-            results[name] = [err, ms, plain_ms]
+            results[name] = record
 
         bwd_name = bwd.__name__
         kernel_grads = bwd(*inputs, out, *grads, lse, *bwd_args)
@@ -218,12 +314,14 @@ def training_kernel_checks(ac, rand, log):
         torch.cuda.empty_cache()
         ms = time_ms(lambda: bwd(*inputs, out, *grads, lse, *bwd_args))
         plain_ms = time_ms(lambda: bwd_plain(*inputs, *grads, *bwd_args), n=5)
-        emit({'phase': 'kernel', 'name': bwd_name, 'form': 'training backward',
-              'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
-              'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms}, log)
+        record = {'phase': 'kernel', 'name': bwd_name, 'form': 'training backward',
+                  'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
+                  'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms,
+                  **yardsticks(bwd_name, inputs, bwd_args, L)}
+        emit(record, log)
         check(finite, f'{bwd_name}: non-finite gradient')
         check(max(rels) <= GRAD_TOL, f'{bwd_name}: rel err {rels} > {GRAD_TOL}')
-        results[bwd_name] = [max(errs), ms, plain_ms]
+        results[bwd_name] = dict(record, max_abs_err=max(errs))
         del out, lse
         torch.cuda.empty_cache()
     return results
@@ -543,7 +641,7 @@ def main():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
                          'this script runs only on a CUDA device')
     sys.path.insert(0, ROOT)
-    from viewformer_tpu.config import MIGTConfig, VQGANConfig
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
     from viewformer_tpu_torch.models import AutoModel
     from viewformer_tpu_torch.ops import attention_cuda as ac
 
@@ -555,10 +653,13 @@ def main():
     t0 = time.perf_counter()
     libs = ac.build()
     build_s = time.perf_counter() - t0
+    ptxas = ac.build_log().splitlines()
     emit({'phase': 'build', 'card': card, 'torch': torch.__version__,
           'cuda': torch.version.cuda,
           'libraries': [os.path.relpath(path, ROOT) for path in libs.values()],
-          'seconds': build_s, 'ptxas': ac.build_log().splitlines()}, log)
+          'seconds': build_s, 'ptxas': ptxas}, log)
+    spills = [line for line in ptxas if re.search(r'[1-9][0-9]* bytes spill', line)]
+    check(not spills, f'ptxas reports register spills: {spills}')
 
     kernels = kernel_checks(ac, log)
 
@@ -583,8 +684,8 @@ def main():
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {
-        'block_causal_attention_fwd': (csrc + 'branching_attention.cu', ':52'),
-        'branch_attention_fwd': (csrc + 'branching_attention.cu', ':69'),
+        'block_causal_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':52'),
+        'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':69'),
         'block_causal_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':149'),
         'branch_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':182'),
         'block_causal_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':331'),
@@ -597,8 +698,9 @@ def main():
          'replaces': 'viewformer_tpu/ops/attention_pallas.py' + sources[name][1],
          'launches': sum(path[name] for path in launches.values()),
          'launches_by_path': {path: counts[name] for path, counts in launches.items()},
-         'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
-        for name, (err, ms, plain_ms) in kernels.items()]}
+         **{key: record[key] for key in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',
+                                         'bound_by', 'library_ms')}}
+        for name, record in kernels.items()]}
     os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
     with open(os.path.join(ROOT, 'chiprun_out', 'chip_smoke.json'), 'w') as f:
         json.dump({'records': log, 'summary': summary}, f, indent=1)

@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 
 from test_migt_incremental import TINY
+from test_torch_config import to_port
 from viewformer_tpu.evaluate import transformer as jev
 from viewformer_tpu.models import migt_incremental as jinc
 from viewformer_tpu.models.migt import MIGT
@@ -32,7 +33,8 @@ def setup():
     tokens = rng.randint(0, 16, (2, 5, 2, 2))
     variables = jax.device_get(jmodel.init(jax.random.PRNGKey(0), jnp.asarray(poses),
                                            jnp.asarray(tokens), compute_losses=True))
-    port = AutoModel.from_config(CONFIG, generator=torch.Generator().manual_seed(0))
+    port = AutoModel.from_config(to_port(CONFIG), device='cpu',
+                                generator=torch.Generator().manual_seed(0))
     port.load_state_dict(state_dict_from_jax(port, variables))
     return jmodel, variables['params'], port, poses, tokens
 
@@ -121,7 +123,7 @@ def test_parameter_tree_matches_jax(options):
     variables = jax.device_get(MIGT(config).init(
         jax.random.PRNGKey(1), jnp.zeros((1, 4, 7)), jnp.zeros((1, 4, 2, 2), jnp.int32),
         compute_losses=True))
-    port = AutoModel.from_config(config)
+    port = AutoModel.from_config(to_port(config), device='cpu')
     state = state_dict_from_jax(port, variables)
     assert {k: tuple(v.shape) for k, v in state.items()} == \
         {k: tuple(v.shape) for k, v in port.state_dict().items()}
@@ -132,7 +134,7 @@ def test_parameter_tree_matches_jax(options):
 
 def test_init_cache_matches_jax():
     jcache = jinc.init_cache(TINY, 3, 6)
-    cache = tinc.init_cache(TINY, 3, 6)
+    cache = tinc.init_cache(to_port(TINY), 3, 6, device='cpu')
     assert tuple(cache.k.shape) == jcache['k'].shape == tuple(cache.v.shape)
     assert cache.n == 0 and cache.grid == jcache.grid
     assert not cache.k.any() and not cache.v.any()

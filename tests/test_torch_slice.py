@@ -1,7 +1,7 @@
 """The port's serving slice end to end against the JAX package, its
-independence from jax (serving and train steps without and with dropout,
-with jax and flax blocked), and chip_smoke.py's refusal to run without a
-card."""
+independence from the JAX package (serving and train steps without and
+with dropout, with viewformer_tpu, jax and flax blocked), and
+chip_smoke.py's refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 
 from test_serve import CCONFIG, TCONFIG
+from test_torch_config import to_port
 from viewformer_tpu.evaluate import transformer as jev
 from viewformer_tpu.models.migt import MIGT
 from viewformer_tpu.models.vqgan import VQGAN
@@ -27,7 +28,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _port(config, variables):
-    model = AutoModel.from_config(config, generator=torch.Generator().manual_seed(0))
+    model = AutoModel.from_config(to_port(config), device='cpu',
+                                 generator=torch.Generator().manual_seed(0))
     model.load_state_dict(state_dict_from_jax(model, variables))
     return model
 
@@ -67,20 +69,21 @@ _NO_JAX = """
 import pkgutil, sys
 sys.modules['jax'] = None
 sys.modules['flax'] = None
+sys.modules['viewformer_tpu'] = None
 sys.path.insert(0, {root!r})
 import importlib, numpy as np, torch
 import viewformer_tpu_torch
 for info in pkgutil.walk_packages(viewformer_tpu_torch.__path__, 'viewformer_tpu_torch.'):
     importlib.import_module(info.name)
-from viewformer_tpu.config import MIGTConfig, VQGANConfig
+from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
 from viewformer_tpu_torch.evaluate.transformer import generate_batch_predictions
 from viewformer_tpu_torch.models import AutoModel
 gen = torch.Generator().manual_seed(0)
 codebook = AutoModel.from_config(VQGANConfig(ch=32, ch_mult=[1, 2], num_res_blocks=1,
     attn_resolutions=[8], z_channels=32, embed_dim=8, n_embed=16, image_size=16),
-    generator=gen)
+    device='cpu', generator=gen)
 transformer = AutoModel.from_config(MIGTConfig(n_embeddings=16, n_head=2, d_model=32,
-    n_layer=2, token_image_size=8), generator=gen)
+    n_layer=2, token_image_size=8), device='cpu', generator=gen)
 rng = np.random.RandomState(0)
 out = generate_batch_predictions(transformer, codebook,
     rng.randint(0, 256, (1, 3, 16, 16, 3)).astype(np.uint8),
@@ -91,7 +94,7 @@ from viewformer_tpu_torch.train.transformer import (init_transformer_state,
     make_transformer_train_step, process_batch)
 config = MIGTConfig(n_embeddings=16, n_head=2, d_model=32, n_layer=2, dropout=0.0,
     sequence_size=3, token_image_size=2, n_loss_skip=1, localization_weight='1')
-model, state = init_transformer_state(config, gen, dtype=torch.float32)
+model, state = init_transformer_state(config, gen, dtype=torch.float32, device='cpu')
 cameras, tokens = process_batch(rng.randn(3, 7).astype(np.float32),
     rng.randint(0, 16, (3, 2, 2)), 'relative', 'train')
 state, metrics = make_transformer_train_step(model, config)(
@@ -99,13 +102,14 @@ state, metrics = make_transformer_train_step(model, config)(
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
 import dataclasses
 config = dataclasses.replace(config, dropout=0.1)
-model, state = init_transformer_state(config, gen, dtype=torch.float32)
+model, state = init_transformer_state(config, gen, dtype=torch.float32, device='cpu')
 state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
     torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
-assert not any(m.split('.')[0] in ('jax', 'flax') for m in sys.modules if sys.modules[m])
-print('ran without jax')
+assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
+               if sys.modules[m])
+print('ran without jax and viewformer_tpu')
 """
 
 
@@ -113,7 +117,7 @@ def test_port_runs_with_jax_blocked():
     proc = subprocess.run([sys.executable, '-c', _NO_JAX.format(root=ROOT)],
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert 'ran without jax' in proc.stdout
+    assert 'ran without jax and viewformer_tpu' in proc.stdout
 
 
 @pytest.mark.parametrize('alone', [False, True])

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_config import to_port
 from test_torch_dropout import pallas_interpret
 from test_train_transformer import TINY
 from viewformer_tpu.models import migt as jmigt
@@ -43,7 +44,7 @@ def _batch(seed, B=2, T=4):
 
 
 def _port(config, params, **kwargs):
-    model = TorchMIGT(config, generator=torch.Generator().manual_seed(0), **kwargs)
+    model = TorchMIGT(to_port(config), generator=torch.Generator().manual_seed(0), **kwargs)
     model.load_state_dict(state_dict_from_jax(model, {'params': jax.device_get(params)}))
     return model
 
@@ -129,9 +130,10 @@ def test_train_steps_match_jax(jax_training, n_steps):
     3 steps, the eval step."""
     config, initial, jax_metrics, jax_params, (jax_eval, jax_logits), (poses, tokens) = \
         jax_training
-    model, state = ttt.init_transformer_state(config, dtype=torch.float32, warmup_steps=2)
+    model, state = ttt.init_transformer_state(to_port(config), dtype=torch.float32,
+                                              device='cpu', warmup_steps=2)
     model.load_state_dict(state_dict_from_jax(model, {'params': initial}))
-    step = ttt.make_transformer_train_step(model, config)
+    step = ttt.make_transformer_train_step(model, to_port(config))
     batch = (torch.from_numpy(poses), torch.from_numpy(tokens))
     for expected in jax_metrics[:n_steps]:
         state, metrics = step(state, batch)
@@ -153,7 +155,7 @@ def test_train_steps_match_jax(jax_training, n_steps):
         # an Adam update moves a weight by up to lr = 1e-3
         np.testing.assert_allclose(value, expected, atol=1e-5, err_msg=name)
     if n_steps == 3:
-        metrics, logits = ttt.make_transformer_eval_step(model, config)(state, batch)
+        metrics, logits = ttt.make_transformer_eval_step(model, to_port(config))(state, batch)
         assert set(metrics) == set(jax_eval)
         for key in metrics:
             _close(metrics[key], jax_eval[key])
@@ -168,7 +170,7 @@ def test_random_pose_multiplier_draws_from_generator():
     training forward equals the eval forward on positions scaled by the
     same draw, with its predicted positions scaled back."""
     config = dataclasses.replace(TINY, random_pose_multiplier=2.0)
-    model = TorchMIGT(config, generator=torch.Generator().manual_seed(0))
+    model = TorchMIGT(to_port(config), generator=torch.Generator().manual_seed(0))
     poses, tokens = (torch.from_numpy(x) for x in _batch(3))
 
     def run(seed=None, deterministic=False):
@@ -198,8 +200,9 @@ def test_train_step_refuses_dropout():
     raises, and a training forward with dropout needs one seed pair a site."""
     config = dataclasses.replace(TINY, dropout=0.1)
     with pytest.raises(ValueError, match="dropout_impl='rng' is not ported"):
-        ttt.init_transformer_state(config, dtype=torch.float32, dropout_impl='rng')
-    model, state = ttt.init_transformer_state(config, dtype=torch.float32)
+        ttt.init_transformer_state(to_port(config), dtype=torch.float32, device='cpu',
+                                   dropout_impl='rng')
+    model, state = ttt.init_transformer_state(to_port(config), dtype=torch.float32, device='cpu')
     poses, tokens = (torch.from_numpy(x) for x in _batch(2))
     assert model.dropout_sites(3) == 3 + 2 * 8
     for seeds in (None, [(1, 2)] * 18):
@@ -244,7 +247,8 @@ def jax_dropout_training(request):
     on one batch, every step drawing the port's seeds of one step (the jitted
     step traces once): as jax_training, plus those seeds."""
     config = DROPOUT_CONFIGS[request.param]
-    port_model, _ = ttt.init_transformer_state(config, dtype=torch.float32)
+    port_model, _ = ttt.init_transformer_state(to_port(config), dtype=torch.float32,
+                                               device='cpu')
     words = ttt.draw_dropout_seeds(port_model, torch.Generator().manual_seed(DROPOUT_SEED))
     with pytest.MonkeyPatch.context() as monkeypatch:
         calls = _route_jax_dropout(monkeypatch, words)
@@ -270,9 +274,10 @@ def test_dropout_train_steps_match_jax(jax_dropout_training, n_steps):
     """n port train steps at dropout 0.1 against JAX's with the same seed
     words at every site: metrics each step, then the parameters."""
     config, initial, jax_metrics, jax_params, (poses, tokens) = jax_dropout_training
-    model, state = ttt.init_transformer_state(config, dtype=torch.float32, warmup_steps=2)
+    model, state = ttt.init_transformer_state(to_port(config), dtype=torch.float32,
+                                              device='cpu', warmup_steps=2)
     model.load_state_dict(state_dict_from_jax(model, {'params': initial}))
-    step = ttt.make_transformer_train_step(model, config)
+    step = ttt.make_transformer_train_step(model, to_port(config))
     batch = (torch.from_numpy(poses), torch.from_numpy(tokens))
     for expected in jax_metrics[:n_steps]:
         state, metrics = step(state, batch, torch.Generator().manual_seed(DROPOUT_SEED))
@@ -325,9 +330,10 @@ def test_dropout_remat_and_seeds():
     batch = tuple(torch.from_numpy(x) for x in _batch(6))
 
     def run(remat, seed):
-        model, state = ttt.init_transformer_state(config, torch.Generator().manual_seed(0),
-                                                  dtype=torch.float32, remat=remat)
-        state, metrics = ttt.make_transformer_train_step(model, config)(
+        model, state = ttt.init_transformer_state(to_port(config), torch.Generator().manual_seed(0),
+                                                  dtype=torch.float32, device='cpu',
+                                                  remat=remat)
+        state, metrics = ttt.make_transformer_train_step(model, to_port(config))(
             state, batch, torch.Generator().manual_seed(seed))
         return metrics['loss'], {name: p.grad for name, p in model.named_parameters()}
 
@@ -374,7 +380,7 @@ def test_weight_decay_mask_matches_jax(jax_training):
     config, params = jax_training[:2]
     mask = jtt._weight_decay_mask(params)
     as_arrays = jax.tree.map(lambda p, m: np.full(np.shape(p), float(m)), params, mask)
-    model = TorchMIGT(config)
+    model = TorchMIGT(to_port(config))
     expected = {name: bool(t.flatten()[0]) for name, t in
                 state_dict_from_jax(model, {'params': as_arrays}).items()}
     port = ttt._weight_decay_mask(model)
@@ -382,7 +388,7 @@ def test_weight_decay_mask_matches_jax(jax_training):
     assert port['wte.weight'] and port['wpe']
     assert port.get('pos_ori_weights', not config.use_dynamic_pose_loss)
     assert not port['h.0.ln_1.weight'] and not port['h.0.attn.c_attn.bias']
-    optimizer, _ = ttt.create_transformer_optimizer(model, config)
+    optimizer, _ = ttt.create_transformer_optimizer(model, to_port(config))
     decayed = {id(p) for group in optimizer.param_groups if group['weight_decay'] > 0
                for p in group['params']}
     assert decayed == {id(p) for name, p in model.named_parameters() if port[name]}

@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 
 from test_serve import CCONFIG
+from test_torch_config import to_port
 from viewformer_tpu.models.vqgan import VQGAN
 from viewformer_tpu.ops import image as jimage
 from viewformer_tpu.ops import quantizer as jq
@@ -23,7 +24,8 @@ def models():
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))
     variables = jax.device_get(jmodel.init({'params': k1, 'quantizer': k2},
                                            jnp.zeros((1, 32, 32, 3)), training=False))
-    port = AutoModel.from_config(CCONFIG, generator=torch.Generator().manual_seed(0))
+    port = AutoModel.from_config(to_port(CCONFIG), device='cpu',
+                                generator=torch.Generator().manual_seed(0))
     port.load_state_dict(state_dict_from_jax(port, variables))
     images = np.random.RandomState(0).uniform(-1, 1, (3, 32, 32, 3)).astype(np.float32)
     return jmodel, variables, port, images

@@ -1,11 +1,13 @@
 """viewformer_tpu_torch: the PyTorch and CUDA port of viewformer_tpu.
 
 Runs the serving main path (encode -> prefill -> generate -> decode ->
-localize) and the transformer train step (without dropout) with PyTorch on
-the CPU or on an NVIDIA H100, where the four attention kernels, forward and
-backward, are hand-written CUDA (csrc/). The JAX package stays the
-reference; this package imports none of it except the framework-free
-viewformer_tpu.config.
+localize) and the transformer train step (with and without dropout) with
+PyTorch on an NVIDIA H100, where the eight attention kernels, forward and
+backward, are hand-written CUDA (csrc/). The entry points put their tensors
+on the card unless the caller passes device='cpu'; on CPU tensors the
+kernels' plain PyTorch versions run. The JAX package stays the reference;
+this package imports nothing of it, and keeps its own copy of the config
+(config.py).
 """
 import torch
 

@@ -1,27 +1,25 @@
-// Branching block attention forward kernels for Hopper (sm_90a), bf16 in and out.
+// Branching block attention forward kernels with in-kernel dropout, for
+// Hopper (sm_90a), bf16 in and out.
 //
-// B1 block_causal_attention_fwd replaces the Pallas kernel
-//    viewformer_tpu/ops/attention_pallas.py:_block_causal_kernel3 (stream-0
-//    attention: a query in frame t attends every key of frames <= t).
-// B2 branch_attention_fwd replaces
-//    viewformer_tpu/ops/attention_pallas.py:_branch_kernel3 (side-stream
-//    attention: stream-0 keys of earlier frames plus the query's own frame in
-//    its own stream, one joint softmax). With one query frame over a KV cache
-//    it also replaces the dense _attend_cache of
-//    viewformer_tpu/models/migt_incremental.py.
-// B5 block_causal_attention_dropout_fwd replaces _block_causal_do_kernel3 and
+// B5 block_causal_attention_dropout_fwd replaces
+//    viewformer_tpu/ops/attention_pallas.py:_block_causal_do_kernel3 (stream-0
+//    attention, a query in frame t attends every key of frames <= t, with
+//    inverted dropout on the softmax weights).
 // B7 branch_attention_dropout_fwd (one-shot form only) replaces
-//    _branch_do_kernel3: B1 and B2 with inverted dropout on the softmax
-//    weights, the mask hashed in the kernel from the seed words and each
-//    weight's global index (attention_tile.cuh). They are B1/B2's code with
-//    the template flag kDrop set: the bf16 numerator of a weight becomes
-//    e * keep, while the running sum l keeps the undropped e (dropout acts
-//    after the softmax), so the log-sum-exp written for the backward is B1/B2's.
-//    Index spaces, as the Pallas kernels': B5 (bh*TL + row)*TL + col over
-//    global rows and columns; B7 (g*TL + row)*(TL + qb) + col for stream-0
-//    keys and (g*TL + row)*(TL + qb) + TL + (the key's position inside the
-//    query's q-tile of qb rows) for own-frame keys, qb being the Pallas q-tile
-//    (_pick_q_block), which the host passes in.
+//    viewformer_tpu/ops/attention_pallas.py:_branch_do_kernel3 (side-stream
+//    attention over stream-0 keys of earlier frames plus the query's own
+//    frame, one joint softmax, with dropout).
+// The dropout mask is hashed in the kernel from the seed words and each
+// weight's global index (attention_tile.cuh): the bf16 numerator of a weight
+// becomes e * keep, while the running sum l keeps the undropped e (dropout
+// acts after the softmax), so the log-sum-exp written for the backward is
+// the undropped attention's. Index spaces, as the Pallas kernels': B5
+// (bh*TL + row)*TL + col over global rows and columns; B7
+// (g*TL + row)*(TL + qb) + col for stream-0 keys and
+// (g*TL + row)*(TL + qb) + TL + (the key's position inside the query's q-tile
+// of qb rows) for own-frame keys, qb being the Pallas q-tile (_pick_q_block),
+// which the host passes in. The kernels without dropout, B1 and B2, are
+// attention_fwd_sm90.cu.
 //
 // Conventions kept from the reference: no 1/sqrt(dh) scale, f32 scores and
 // softmax, the softmax weights rounded to the value dtype (bf16) before the
@@ -30,7 +28,7 @@
 // For training, both kernels can also write each query row's f32
 // log-sum-exp of its scores, lse = m + log(l) from the online softmax, which
 // the backward kernels (branching_attention_bwd.cu) recompute the weights
-// from. Serving passes a null pointer and writes nothing more.
+// from.
 //
 // Design. The Pallas kernels keep all of one (batch, head)'s K and V in VMEM
 // and finish in one pass. At T*L = 1280 and dh = 64, K+V of one (b, h) in bf16
@@ -43,14 +41,14 @@
 // exp(-1e9 - m) = 0 in f32 and skipping them is exact. Within a visited frame
 // no key is masked, so the kernels hold no mask at all.
 //
-// What bounds it: at the main path's shapes B1 does ~1 MFLOP per (query
-// frame, key frame) pair on 16 KB of K/V. The products run on the tensor
-// cores through WMMA 16x16x16 bf16 tiles (4 warps, 16 query rows each), with
-// no copy/compute overlap: the loads of each K/V frame are exposed. Simple
-// and right first; TMA, wgmma and a pipelined ring are later work. The hash
-// of B5/B7 adds ~20 integer operations a visited weight to the softmax loop,
-// which that structure hides: on an H100 (700 W) B5/B7 ran within 1% of
-// B1/B2's times.
+// What bounds it: at the main path's shapes each (query frame, key frame)
+// pair is ~1 MFLOP on 16 KB of K/V. The products run on the tensor cores
+// through WMMA 16x16x16 bf16 tiles (4 warps, 16 query rows each), with no
+// copy/compute overlap: the loads of each K/V frame are exposed. The hash
+// adds ~20 integer operations a visited weight to the softmax loop, which
+// that structure hides: on an H100 (700 W) B5/B7 ran within 1% of the times
+// of the same structure without dropout. Moving them onto the TMA/wgmma
+// design of attention_fwd_sm90.cu is later work.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -113,9 +111,8 @@ __device__ void init_state(const Smem& sm) {
 }
 
 // Fold one frame of keys (sm.k) and values (sm.v) into the warp's 16 rows.
-// Touches only the warp's own rows of s, p, o, m, l. With kDrop, the weights'
-// global indices are wi's.
-template <bool kDrop>
+// Touches only the warp's own rows of s, p, o, m, l. The weights' global
+// indices are wi's.
 __device__ void attend_frame(const Smem& sm, int warp, int lane, const Dropout& drop,
                              WeightIndex wi) {
   const int r0 = warp * 16;
@@ -152,7 +149,7 @@ __device__ void attend_frame(const Smem& sm, int warp, int lane, const Dropout& 
   for (int j = 0; j < 32; ++j) {
     const float e = expf(srow[j] - m_new);
     float p = e;
-    if (kDrop) p *= keep_factor(drop, wi.base + row * wi.stride + half * 32 + j);
+    p *= keep_factor(drop, wi.base + row * wi.stride + half * 32 + j);
     prow[j] = __float2bfloat16(p);
     sum += e;
   }
@@ -183,7 +180,6 @@ __device__ void attend_frame(const Smem& sm, int warp, int lane, const Dropout& 
 }
 
 // Each frame's K and V pass through shared memory shared by all warps.
-template <bool kDrop>
 __device__ void attend_global_frame(const Smem& sm, const bf16* k, const bf16* v,
                                     int warp, int lane, const Dropout& drop,
                                     WeightIndex wi) {
@@ -191,7 +187,7 @@ __device__ void attend_global_frame(const Smem& sm, const bf16* k, const bf16* v
   load_tile(sm.k, k);
   load_tile(sm.v, v);
   __syncthreads();
-  attend_frame<kDrop>(sm, warp, lane, drop, wi);
+  attend_frame(sm, warp, lane, drop, wi);
 }
 
 // out: the query frame's [64, 64] tile; lse: its 64 row entries, or null.
@@ -207,7 +203,6 @@ __device__ void write_out(const Smem& sm, bf16* out, float* lse, int warp, int l
 
 // q, k, v, o: [BH, T*64, 64]; lse: [BH, T*64] or null. grid (T, BH): block
 // (t, bh) computes query frame t against key frames 0..t.
-template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
@@ -222,7 +217,7 @@ block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_tile(sm.q, q + base + (size_t)t * kTile);
   init_state(sm);
   for (int f = 0; f <= t; ++f)
-    attend_global_frame<kDrop>(sm, k + base + (size_t)f * kTile,
+    attend_global_frame(sm, k + base + (size_t)f * kTile,
                                v + base + (size_t)f * kTile, warp, lane, drop,
                                WeightIndex{row0 * tl + f * kRows, tl});
   write_out(sm, o + base + (size_t)t * kTile,
@@ -234,9 +229,8 @@ block_causal_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // [BH0, F0*64, 64] shared by the G / BH0 branches (branch g reads row
 // g % BH0). grid (TQ, G): block (tq, g) computes query frame
 // first_q_frame + tq against stream-0 frames < min(that frame, n_old), then
-// its own frame of kb/vb. kDrop (B7) is launched in the one-shot form only
+// its own frame of kb/vb. It is launched in the one-shot form only
 // (first_q_frame = 0, n_old = TQ = F0), with the Pallas q-tile qb.
-template <bool kDrop>
 __global__ void __launch_bounds__(kThreads)
 branch_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
               const bf16* __restrict__ v0, const bf16* __restrict__ kb,
@@ -257,35 +251,33 @@ branch_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
   load_tile(sm.q, q + own);
   init_state(sm);
   for (int f = 0; f < n_prev; ++f)
-    attend_global_frame<kDrop>(sm, k0 + base0 + (size_t)f * kTile,
+    attend_global_frame(sm, k0 + base0 + (size_t)f * kTile,
                                v0 + base0 + (size_t)f * kTile, warp, lane, drop,
                                WeightIndex{row_base + f * kRows, stride});
   // own-frame keys: offset TL, then the key's position inside the q-tile
-  attend_global_frame<kDrop>(sm, kb + own, vb + own, warp, lane, drop,
-                             WeightIndex{row_base + tl + (kDrop ? tq * kRows % qb : 0), stride});
+  attend_global_frame(sm, kb + own, vb + own, warp, lane, drop,
+                             WeightIndex{row_base + tl + tq * kRows % qb, stride});
   write_out(sm, o + own, lse == nullptr ? nullptr : lse + own / kDh, warp, lane);
 }
 
-template <bool kDrop>
 int launch_block_causal(const void* q, const void* k, const void* v, void* o, void* lse,
                         int bh, int frames, Dropout drop, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      block_causal_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      block_causal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  block_causal_kernel<kDrop><<<dim3(frames, bh), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  block_causal_kernel<<<dim3(frames, bh), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse, frames, drop);
   return (int)cudaGetLastError();
 }
 
-template <bool kDrop>
 int launch_branch(const void* q, const void* k0, const void* v0, const void* kb,
                   const void* vb, void* o, void* lse, int g, int q_frames, int bh0,
                   int old_frames, int first_q_frame, int n_old, int qb, Dropout drop,
                   void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      branch_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      branch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  branch_kernel<kDrop><<<dim3(q_frames, g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+  branch_kernel<<<dim3(q_frames, g), kThreads, kSmemBytes, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k0, (const bf16*)v0, (const bf16*)kb, (const bf16*)vb,
       (bf16*)o, (float*)lse, q_frames, old_frames, bh0, first_q_frame, n_old, qb, drop);
   return (int)cudaGetLastError();
@@ -296,26 +288,11 @@ int launch_branch(const void* q, const void* k0, const void* v0, const void* kb,
 // Plain C entry points (bound with ctypes). Each launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() of the launch. lse may
 // be null. s0, s1, rate, scale: see Dropout (attention_tile.cuh).
-extern "C" int block_causal_attention_fwd(const void* q, const void* k, const void* v,
-                                          void* o, void* lse, int bh, int frames,
-                                          void* stream) {
-  return launch_block_causal<false>(q, k, v, o, lse, bh, frames, Dropout{}, stream);
-}
-
 extern "C" int block_causal_attention_dropout_fwd(const void* q, const void* k, const void* v,
                                                   void* o, void* lse, int bh, int frames,
                                                   unsigned s0, unsigned s1, float rate,
                                                   float scale, void* stream) {
-  return launch_block_causal<true>(q, k, v, o, lse, bh, frames, Dropout{s0, s1, rate, scale},
-                                   stream);
-}
-
-extern "C" int branch_attention_fwd(const void* q, const void* k0, const void* v0,
-                                    const void* kb, const void* vb, void* o, void* lse,
-                                    int g, int q_frames, int bh0, int old_frames,
-                                    int first_q_frame, int n_old, void* stream) {
-  return launch_branch<false>(q, k0, v0, kb, vb, o, lse, g, q_frames, bh0, old_frames,
-                              first_q_frame, n_old, 0, Dropout{}, stream);
+  return launch_block_causal(q, k, v, o, lse, bh, frames, Dropout{s0, s1, rate, scale}, stream);
 }
 
 // The one-shot form: q_frames = old_frames = frames, first_q_frame 0, n_old frames.
@@ -324,6 +301,6 @@ extern "C" int branch_attention_dropout_fwd(const void* q, const void* k0, const
                                             void* lse, int g, int frames, int bh0, int qb,
                                             unsigned s0, unsigned s1, float rate,
                                             float scale, void* stream) {
-  return launch_branch<true>(q, k0, v0, kb, vb, o, lse, g, frames, bh0, frames, 0, frames,
-                             qb, Dropout{s0, s1, rate, scale}, stream);
+  return launch_branch(q, k0, v0, kb, vb, o, lse, g, frames, bh0, frames, 0, frames, qb,
+                       Dropout{s0, s1, rate, scale}, stream);
 }

@@ -19,6 +19,7 @@ import torch
 from ..ops.attention_cuda import branch_attention_fwd
 from ..ops.branching_attention import multi_end_block_attention
 from ..utils import geometry
+from ..utils.device import resolve_device
 
 
 @dataclass
@@ -29,7 +30,10 @@ class KVCache:
     grid: tuple
 
 
-def init_cache(config, batch_size, max_frames, dtype=torch.float32, device=None):
+def init_cache(config, batch_size, max_frames, dtype=torch.float32, device='cuda'):
+    """An empty KVCache of max_frames frames, on `device`: the card unless the
+    caller asks for the CPU."""
+    device = resolve_device(device)
     dh = config.d_model // config.n_head
     g = config.token_image_size
     shape = (config.n_layer, batch_size, config.n_head, max_frames, g * g, dh)

@@ -46,8 +46,8 @@ from .dropout import hash_keep
 _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
-# each source is one shared library; the header is compiled into both
-_SOURCES = ('branching_attention.cu', 'branching_attention_bwd.cu')
+# each source is one shared library; the headers are compiled into them
+_SOURCES = ('attention_fwd_sm90.cu', 'branching_attention.cu', 'branching_attention_bwd.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
 # weights a plain dropout twin holds at a time (f32 scores, int64 indices):

@@ -31,6 +31,7 @@ import torch.nn as nn
 
 from ..models.migt import MIGT
 from ..utils import geometry
+from ..utils.device import resolve_device
 
 
 def process_batch(cameras, tokens, augment, split, rng=None):
@@ -132,14 +133,16 @@ class TransformerTrainState:
     step: int = 0
 
 
-def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device=None,
+def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device='cuda',
                            remat=True, total_steps=None, warmup_steps=2000,
                            dropout_impl='hash'):
     """-> (model, TransformerTrainState): MIGT with f32 parameters drawn from
-    `generator`, computing in `dtype`, on `device`; remat recomputes each
-    block in the backward. dropout_impl: 'hash' only; 'rng' raises."""
+    `generator`, computing in `dtype`, on `device` (the card unless the
+    caller asks for the CPU); remat recomputes each block in the backward.
+    dropout_impl: 'hash' only; 'rng' raises."""
+    device = resolve_device(device)
     model = MIGT(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
-                 remat=remat, dropout_impl=dropout_impl).to(device or 'cpu')
+                 remat=remat, dropout_impl=dropout_impl).to(device)
     optimizer, lr_schedule = create_transformer_optimizer(model, config, total_steps,
                                                           warmup_steps)
     return model, TransformerTrainState(optimizer, lr_schedule)
