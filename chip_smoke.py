@@ -17,9 +17,13 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      and, with their log-sum-exp output, at the training shapes (B1 at even
      T = 20); the backward kernels B3/B4 at the training shapes; the
      dropout kernels B5-B8 at the training shapes (rate 0.1, fixed seed
-     words), then an exact probe of B5's and B7's dropout masks: with q = k
-     = 0 and V the identity on one key frame, the output's nonzeros are that
-     frame's keep bits, held bit for bit against the plain twins' mask;
+     words); B3 and B6 also at T = 1 and 19 (BH = 24), where their CTA plan
+     has idle warpgroups and a lone last frame, and with the device time of
+     their D pass and main kernel (torch.profiler); then an exact probe of
+     B5's and B7's dropout masks: with q = k = 0 and V the identity on one
+     key frame, the output's nonzeros are that frame's keep bits, held bit
+     for bit against the plain twins' mask; and of B6's, through dV (key
+     CTAs) and dQ (query CTAs);
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
@@ -253,6 +257,7 @@ def kernel_checks(ac, log):
             results[name] = record
         results[name]['max_abs_err'] = max(results[name]['max_abs_err'], err)
     results.update(training_kernel_checks(ac, rand, log))
+    block_causal_bwd_edges(ac, rand, results, log)
     dropout_probes(ac, log)
     return results
 
@@ -261,8 +266,9 @@ def training_kernel_checks(ac, rand, log):
     """Phase 2 at the training path's shapes (B=64, T=20, L=64, dh=64,
     H=12, S=2 branches): B1/B2 and B5/B7 (rate 0.1, seed words WORDS) with
     the log-sum-exp, then B3/B4 and B6/B8 from the same bf16 inputs (out and
-    lse from the forward) against their plain twins in f32. Returns
-    {kernel name: record} for B3-B8."""
+    lse from the forward) against their plain twins in f32, B3/B6 with the
+    device time of each of their two kernels. Returns {kernel name: record}
+    for B3-B8."""
     BH, T, L = TRAIN_B * 12, 20, 64
     q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
     qb, kb, vb, doutb = (rand(2 * BH, T * L, 64) for _ in range(4))
@@ -318,6 +324,9 @@ def training_kernel_checks(ac, rand, log):
                   'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
                   'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms,
                   **yardsticks(bwd_name, inputs, bwd_args, L)}
+        if bwd_name.startswith('block_causal'):  # B3/B6: the D pass, then the main kernel
+            record['device_ms_by_kernel'] = device_ms_by_kernel(
+                lambda: bwd(*inputs, out, *grads, lse, *bwd_args))
         emit(record, log)
         check(finite, f'{bwd_name}: non-finite gradient')
         check(max(rels) <= GRAD_TOL, f'{bwd_name}: rel err {rels} > {GRAD_TOL}')
@@ -325,6 +334,92 @@ def training_kernel_checks(ac, rand, log):
         del out, lse
         torch.cuda.empty_cache()
     return results
+
+
+def device_ms_by_kernel(fn, n=5):
+    """{CUDA kernel name: device ms a call} of the kernels fn launches, by
+    torch.profiler over n calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def block_causal_bwd_edges(ac, rand, results, log):
+    """Phase 2: B3 and B6 against their plain twins where their CTA plan has
+    its edge cases, at BH = 24: T = 1 (one key and one query CTA a row, each
+    with an idle warpgroup) and T = 19 (the last pair of frames has one)."""
+    BH, L = 24, 64
+    for T in (1, 19):
+        q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
+        for fwd, bwd, plain, args in (
+                (ac.block_causal_attention_fwd, ac.block_causal_attention_bwd,
+                 ac.block_causal_attention_bwd_plain, (L,)),
+                (ac.block_causal_attention_dropout_fwd, ac.block_causal_attention_dropout_bwd,
+                 ac.block_causal_attention_dropout_bwd_plain, (L, WORDS, RATE))):
+            name = bwd.__name__
+            out, lse = fwd(q, k, v, *args, return_lse=True)
+            grads = bwd(q, k, v, out, dout, lse, *args)
+            torch.cuda.synchronize()
+            ref = plain(q.float(), k.float(), v.float(), dout.float(), *args)
+            errs = [(g.float() - r).abs().max().item() for g, r in zip(grads, ref)]
+            rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
+            finite = all(torch.isfinite(g).all().item() for g in grads)
+            emit({'phase': 'kernel', 'name': name, 'form': f'CTA plan edge: T={T}, BH={BH}',
+                  'shapes': [list(q.shape)] * 4, 'max_abs_err': errs, 'rel_err': rels,
+                  'tol': GRAD_TOL}, log)
+            check(finite, f'{name} (T={T}): non-finite gradient')
+            check(max(rels) <= GRAD_TOL, f'{name} (T={T}): rel err {rels} > {GRAD_TOL}')
+            results[name]['max_abs_err'] = max(results[name]['max_abs_err'], max(errs))
+
+
+def block_causal_bwd_mask_probe(ac, mask):
+    """Phase 2: B6's dropout mask at the training shape, bit for bit against
+    mask = hash_keep over bc_weight_index ([BH, query, key] bool), in both
+    kinds of CTA. q = 0 makes every visited weight of a row equal, W > 0.
+    Key CTAs, through dV = (W keep)^T dO: with dO the identity on the rows of
+    query frame t (0 elsewhere), dV[key, i] = W keep(t*64 + i, key), so its
+    nonzeros are the keep bits of frame t's queries over the key frames
+    <= t (k = v = 0; out and lse from B5 on the same inputs). Query CTAs,
+    through dQ = dS K: with K the identity on key frame f, V and dO 1 in
+    column 0 (dP = 1) and out = 0 (D = 0), dQ[query, j] = W keep(query,
+    f*64 + j) for the queries of frames >= f (lse as before: with q = 0 it
+    does not depend on K or V). Every frame t and f. Returns the mismatched
+    bits of each side."""
+    BH, TL, L = mask.shape[0], mask.shape[1], 64
+    T = TL // L
+    zeros = lambda: torch.zeros(BH, TL, L, dtype=torch.bfloat16, device='cuda')  # noqa: E731
+    eye = torch.eye(L, dtype=torch.bfloat16, device='cuda')
+    frames = torch.arange(TL, device='cuda') // L
+
+    def frame_identity(f):
+        x = zeros()
+        x[:, f * L:(f + 1) * L] = eye
+        return x
+
+    q = zeros()
+    out, lse = ac.block_causal_attention_dropout_fwd(q, q, q, L, WORDS, RATE, return_lse=True)
+    bad_key = 0
+    for t in range(T):
+        _, _, dv = ac.block_causal_attention_dropout_bwd(q, q, q, out, frame_identity(t), lse, L,
+                                                         WORDS, RATE)
+        expected = mask[:, t * L:(t + 1) * L].transpose(1, 2) & (frames <= t)[None, :, None]
+        bad_key += ((dv != 0) != expected).sum().item()
+    column0 = zeros()
+    column0[..., 0] = 1
+    bad_query = 0
+    for f in range(T):
+        dq, _, _ = ac.block_causal_attention_dropout_bwd(q, frame_identity(f), column0, q, column0,
+                                                         lse, L, WORDS, RATE)
+        expected = mask[:, :, f * L:(f + 1) * L] & (frames >= f)[None, :, None]
+        bad_query += ((dq != 0) != expected).sum().item()
+    return {'key_ctas_dv': bad_key, 'query_ctas_dq': bad_query}
 
 
 def dropout_probes(ac, log):
@@ -335,7 +430,7 @@ def dropout_probes(ac, log):
     for that frame. Held bit for bit against the plain twins' mask
     (hash_keep over bc_weight_index / branch_weight_indices): B5 over every
     key frame, B7 over every K0 frame and (vb the identity on every frame)
-    the own frames."""
+    the own frames; B6 against B5's mask (block_causal_bwd_mask_probe)."""
     from viewformer_tpu_torch.ops.dropout import hash_keep
 
     BH, T, L = TRAIN_B * 12, 20, 64
@@ -364,6 +459,11 @@ def dropout_probes(ac, log):
         bad += ((out != 0) != expected).sum().item()
     mismatches['block_causal_attention_dropout_fwd'] = bad
     kept['block_causal_attention_dropout_fwd'] = mask.float().mean().item()
+    bwd_bad = block_causal_bwd_mask_probe(ac, mask)
+    emit({'phase': 'dropout_mask_probe_bwd', 'name': 'block_causal_attention_dropout_bwd',
+          'rate': RATE, 'seed_words': WORDS, 'shape': [BH, TL, L],
+          'mismatched_bits': bwd_bad}, log)
+    mismatches['block_causal_attention_dropout_bwd'] = sum(bwd_bad.values())
     del mask
 
     mask = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[0])  # [G, TL, TL]
@@ -686,10 +786,10 @@ def main():
     sources = {
         'block_causal_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':52'),
         'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':69'),
-        'block_causal_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':149'),
+        'block_causal_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':149'),
         'branch_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':182'),
         'block_causal_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':331'),
-        'block_causal_attention_dropout_bwd': (csrc + 'branching_attention_bwd.cu', ':347'),
+        'block_causal_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':347'),
         'branch_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':381'),
         'branch_attention_dropout_bwd': (csrc + 'branching_attention_bwd.cu', ':414'),
     }

@@ -1,8 +1,14 @@
 """The port's attention backward (viewformer_tpu_torch.ops) against the JAX
 package: the plain twins of kernels B3/B4 against the Pallas backward kernels
 in interpret mode and against jax.vjp of the dense attention, the autograd
-Functions by gradcheck, the log-sum-exp of the forward, and attention
-dropout's need for seeds."""
+Functions by gradcheck, the log-sum-exp of the forward, attention dropout's
+need for seeds, and the ctypes binding of every kernel's C entry point
+against its declaration in csrc/."""
+import ctypes
+import glob
+import os
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -156,3 +162,35 @@ def test_backward_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match='no kernel'):
         ac.branch_attention_bwd(x, x, x, x, x, x, x, lse, 64)
     assert all(fn.launches == 0 for fn in ac.KERNELS)
+
+
+def _c_entry_points():
+    """{name: [parameter declarations]} of every `extern "C" int name(...)`
+    in csrc/*.cu."""
+    found = {}
+    for path in sorted(glob.glob(os.path.join(ac._CSRC_DIR, '*.cu'))):
+        with open(path) as f:
+            for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', f.read()):
+                assert name not in found, f'{name} declared twice'
+                found[name] = [' '.join(p.split()) for p in params.split(',')]
+    return found
+
+
+# a pointer of any type is bound as c_void_p: as c_int it would be cut to 32 bits
+_C_TYPES = {'int': ctypes.c_int, 'unsigned': ctypes.c_uint32, 'float': ctypes.c_float}
+
+
+def _ctype(param):
+    return ctypes.c_void_p if '*' in param else _C_TYPES[param.split()[-2]]
+
+
+def test_every_c_entry_point_is_bound():
+    assert set(_c_entry_points()) == set(ac._SIGNATURES)
+
+
+@pytest.mark.parametrize('name', sorted(ac._SIGNATURES))
+def test_c_entry_point_signature(name):
+    """Each C entry point's parameters, in count and kind, against the ctypes
+    argument types the wrappers bind it with."""
+    params = _c_entry_points()[name]
+    assert [_ctype(p) for p in params] == ac._SIGNATURES[name], params

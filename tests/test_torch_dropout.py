@@ -1,7 +1,8 @@
 """The port's hash dropout (viewformer_tpu_torch.ops.dropout) and the plain
 twins of the dropout kernels B5-B8 (ops.attention_cuda) against the JAX
 package: the hash against ops/dropout.py and a numpy uint32 replica, the
-twins against the Pallas kernels in interpret mode, the autograd Functions
+twins against the Pallas kernels in interpret mode, the backward's
+D = rowsum(dO * O) against the reference's rowsum, the autograd Functions
 by gradcheck, and multi_end_block_attention with dropout against the JAX
 dispatch's fused path."""
 import jax
@@ -168,6 +169,27 @@ def test_dropout_twins_match_pallas(kernel, T, L, dh):
     assert len(port) == len(expected)
     for p, e in zip(port, expected):
         _close(p.numpy(), e)
+
+
+@pytest.mark.parametrize('rate', [0.0, RATE])
+def test_bwd_delta_plain_is_rowsum_dp_w(rate):
+    """The D pass's twin, rowsum(dO * O) over the dropped output of
+    block_causal_attention_dropout_plain, equals the reference's
+    rowsum(dP' * W) (dP' = (dO V^T) * keep, W the undropped softmax), built
+    from the plain twins' keep mask, in f32."""
+    T, L, dh = 3, 16, 8
+    TL = T * L
+    q, k, v, do = (_t(_rand(30 + i, BH, TL, dh)) for i in range(4))
+    out = ac.block_causal_attention_dropout_plain(q, k, v, L, WORDS, rate)
+    frames = torch.arange(TL) // L
+    allowed = frames[:, None] >= frames[None, :]
+    w = torch.einsum('bqd,bkd->bqk', q, k).masked_fill(~allowed, -1e9).softmax(-1)
+    keep = tdropout.hash_keep(WORDS, ac.bc_weight_index(torch.arange(BH), TL), rate)
+    assert (keep == 0).any() == (rate > 0)
+    dp = torch.einsum('bqd,bkd->bqk', do, v) * keep
+    delta = ac.attention_bwd_delta_plain(out, do)
+    assert delta.dtype == torch.float32 and delta.shape == (BH, TL)
+    _close(delta.numpy(), (dp * w).sum(-1).numpy())
 
 
 @pytest.mark.parametrize('family', ['block_causal', 'branch'])

@@ -31,7 +31,8 @@ __device__ inline void load_tile(bf16* dst, const bf16* src) {
 // u = (h >> 8) / 2^24 >= rate, compared in f32, and a kept weight is scaled by
 // `scale`. The mask is a pure function of (seeds, index), so a backward kernel
 // regenerates it and nothing is saved. All index and hash arithmetic is uint32
-// and wraps, as the reference's does.
+// and wraps, as the reference's does. (B6, in attention_bwd_sm90.cu, runs the
+// same hash and test taken apart: keep_factors there.)
 struct Dropout {
   unsigned s0, s1;  // the seed words
   float rate;

@@ -1,21 +1,18 @@
-// Branching block attention backward kernels for Hopper (sm_90a), bf16 in and out.
+// Branch attention backward kernels for Hopper (sm_90a), bf16 in and out.
+// (The block-causal backward, B3 and B6, is in attention_bwd_sm90.cu.)
 //
-// B3 block_causal_attention_bwd replaces the Pallas kernel
-//    viewformer_tpu/ops/attention_pallas.py:_block_causal_bwd_kernel3 (the
-//    backward of stream-0 block-causal attention, kernel B1).
 // B4 branch_attention_bwd replaces
 //    viewformer_tpu/ops/attention_pallas.py:_branch_bwd_kernel3 together with
 //    the sum over branches of dK0/dV0 in _fb_bwd (attention_pallas.py:630-631):
 //    the backward of the one-shot branch attention, kernel B2 with
 //    first_q_frame = 0 and n_old = T.
-// B6 block_causal_attention_dropout_bwd replaces _block_causal_do_bwd_kernel3
-//    and B8 branch_attention_dropout_bwd replaces _branch_do_bwd_kernel3 with
-//    the sum over branches of _fbd_bwd (attention_pallas.py:708-709): the
-//    backward of B5/B7, B3/B4's code with the template flag kDrop set. Each
-//    block regenerates the dropout mask of the weights it visits from the
-//    seed words and their global indices (attention_tile.cuh; the index
-//    spaces are B5/B7's), so nothing is saved. With keep the scaled mask,
-//    as the reference (attention_pallas.py:366-378, 448-473):
+// B8 branch_attention_dropout_bwd replaces _branch_do_bwd_kernel3 with the
+//    sum over branches of _fbd_bwd (attention_pallas.py:708-709): the
+//    backward of B7, B4's code with the template flag kDrop set. Each block
+//    regenerates the dropout mask of the weights it visits from the seed
+//    words and their global indices (attention_tile.cuh; the index space is
+//    B7's), so nothing is saved. With keep the scaled mask, as the reference
+//    (attention_pallas.py:448-473):
 //      dP' = (dO V^T) * keep,  dS = W * (dP' - D),  dV += (W * keep)^T dO.
 //    D = rowsum(dO * O) still holds: O is the dropped output, so
 //    rowsum(dO * O) = sum_j W_j keep_j (dO . V_j) = rowsum(W * dP'), the
@@ -23,14 +20,14 @@
 //
 // Math, as the reference's (attention_pallas.py:138-146), no 1/sqrt(dh) scale:
 //   W  = softmax(S), S = Q K^T in f32, recomputed as exp(S - lse) from the
-//        forward's per-row f32 log-sum-exp (B1/B2 write it);
+//        forward's per-row f32 log-sum-exp (B2/B7 write it);
 //   dP = dO V^T in f32;   dS = W * (dP - D);
 //   dQ = dS K,   dK = dS^T Q,   dV = W^T dO,
 // with dS and W rounded to bf16 before the three products and f32
 // accumulation; every output rounded to bf16 once, at the end. D is taken as
 // rowsum(dO * O) over the forward's bf16 output O (FlashAttention-2), not as
 // the reference's rowsum(dP * W) over all keys: the two are equal up to the
-// rounding of O, and this way D needs no extra pass over the keys. In B4 the
+// rounding of O, and this way D needs no extra pass over the keys. The
 // softmax is the joint one over K0 frames < t and the own frame, so lse and D
 // cover both key sets.
 //
@@ -39,18 +36,18 @@
 // order, so here each output tile has exactly one owner block, which loops
 // over what feeds it; there are no atomics and the result is deterministic.
 // One launch holds two kinds of block:
-//   key blocks, one per (row, key frame j), own the 64 keys of frame j and
-//     accumulate dK/dV over the query frames that see j (B3: t >= j of the
-//     same row; B4: t > j of every branch of the row, so the sum over the S
-//     branches happens here, in f32, with no [S*BH, ...] temporary);
-//   query blocks, one per (row, query frame t), own the 64 query rows of
-//     frame t and accumulate dQ over the key frames t sees (B3: <= t; B4:
-//     K0 frames < t, then the own frame, whose dKb/dVb only frame t's queries
-//     feed, so the query block writes them too).
+//   key blocks, one per (row, key frame j), own the 64 keys of K0/V0 frame j
+//     and accumulate dK0/dV0 over the query frames t > j of every branch of
+//     the row, so the sum over the S branches happens here, in f32, with no
+//     [S*BH, ...] temporary;
+//   query blocks, one per (branch row, query frame t), own the 64 query rows
+//     of frame t and accumulate dQ over the K0 frames < t, then the own
+//     frame, whose dKb/dVb only frame t's queries feed, so the query block
+//     writes them too.
 // Every block streams the other side one [64, 64] frame tile at a time
-// through shared memory, as the forward kernels do (one (b, h)'s K/V, 320 KB
-// at T*L = 1280, does not fit in the 227 KB a block may use). Key blocks,
-// the longest (up to T or S*(T-1) frames), come first in the grid.
+// through shared memory (one (b, h)'s K/V, 320 KB at T*L = 1280, does not
+// fit in the 227 KB a block may use). Key blocks, the longest (up to
+// S*(T-1) frames), come first in the grid.
 //
 // What bounds it: each visited (query frame, key frame) pair costs four
 // 64x64x64 products in the block that owns it (S, dP, then dQ, or dK and
@@ -58,8 +55,8 @@
 // products a pair against the 5 of a single pass. The products run on the
 // tensor cores through WMMA 16x16x16 bf16 tiles, with no copy/compute
 // overlap. Simple and right first; TMA, wgmma and a pipelined ring are later
-// work. The hash of B6/B8 is hidden the same way: on an H100 (700 W) they ran
-// within 1% of B3/B4's times.
+// work (attention_bwd_sm90.cu has them for B3/B6). The hash of B8 is hidden
+// the same way: on an H100 (700 W) B8 ran within 1% of B4's time.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
@@ -261,57 +258,6 @@ __device__ void key_frame(const Smem& sm, Acc* dk, Acc* dv, const bf16* q, const
   accumulate_ab(dk, sm.ds + r0 * kRows, sm.in_a);                 // dK += dS^T Q
 }
 
-// q, k, v, o, dout, dq, dk, dv: [BH, T*64, 64]; lse: [BH, T*64].
-// grid (T, 2*BH): y < BH are key blocks (row y, key frame x), the rest query
-// blocks (row y - BH, query frame x).
-template <bool kDrop>
-__global__ void __launch_bounds__(kThreads)
-block_causal_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const bf16* __restrict__ dout, const float* __restrict__ lse,
-                        bf16* __restrict__ dq, bf16* __restrict__ dk,
-                        bf16* __restrict__ dv, int bh, int frames, Dropout drop) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem sm = carve(smem);
-  const int r0 = (threadIdx.x / 32) * 16, lane = threadIdx.x % 32;
-  const bool key_block = blockIdx.y < bh;
-  const int row = key_block ? blockIdx.y : blockIdx.y - bh;
-  const int f = blockIdx.x;
-  const size_t base = (size_t)row * frames * kTile;
-  const size_t own = base + (size_t)f * kTile;
-  const float* lse_row = lse + (size_t)row * frames * kRows;
-  // B5's index of (query frame a, key frame b): (row*TL + a*64 + i)*TL + b*64 + j
-  const unsigned tl = frames * kRows;
-  auto weight_index = [&](int a, int b) {
-    return WeightIndex{(row * tl + a * kRows) * tl + b * kRows, tl};
-  };
-
-  if (key_block) {
-    Acc acc_k[kDh / 16], acc_v[kDh / 16];
-    zero(acc_k);
-    zero(acc_v);
-    load_tile(sm.own_a, k + own);
-    load_tile(sm.own_b, v + own);
-    for (int t = f; t < frames; ++t) {
-      const size_t at = base + (size_t)t * kTile;
-      key_frame<kDrop>(sm, acc_k, acc_v, q + at, dout + at, o + at, lse_row + t * kRows, r0,
-                       lane, drop, weight_index(t, f));
-    }
-    store_rows(acc_k, sm.s, dk + own, r0, lane);
-    store_rows(acc_v, sm.dp, dv + own, r0, lane);
-    return;
-  }
-  Acc acc_q[kDh / 16];
-  zero(acc_q);
-  load_tile(sm.own_a, q + own);
-  load_tile(sm.own_b, dout + own);
-  load_query_state(sm, o + own, lse_row + f * kRows, sm.own_b);
-  for (int t = 0; t <= f; ++t)
-    query_frame<kDrop>(sm, acc_q, k + base + (size_t)t * kTile, v + base + (size_t)t * kTile,
-                       r0, lane, drop, weight_index(f, t));
-  store_rows(acc_q, sm.s, dq + own, r0, lane);
-}
-
 // q, kb, vb, o, dout, dq, dkb, dvb: [G, T*64, 64]; lse: [G, T*64];
 // k0, v0, dk0, dv0: [BH0, T*64, 64], shared by the S = G / BH0 branches
 // (branch g reads row g % BH0). grid (T, BH0 + G): y < BH0 are key blocks of
@@ -382,21 +328,6 @@ branch_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k0,
 }
 
 template <bool kDrop>
-int launch_block_causal_bwd(const void* q, const void* k, const void* v, const void* o,
-                            const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                            int bh, int frames, Dropout drop, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(block_causal_bwd_kernel<kDrop>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  block_causal_bwd_kernel<kDrop><<<dim3(frames, 2 * bh), kThreads, kSmemBytes,
-                                   (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)o, (const bf16*)dout,
-      (const float*)lse, (bf16*)dq, (bf16*)dk, (bf16*)dv, bh, frames, drop);
-  return (int)cudaGetLastError();
-}
-
-template <bool kDrop>
 int launch_branch_bwd(const void* q, const void* k0, const void* v0, const void* kb,
                       const void* vb, const void* o, const void* dout, const void* lse,
                       void* dq, void* dk0, void* dv0, void* dkb, void* dvb, int g, int bh0,
@@ -417,24 +348,6 @@ int launch_branch_bwd(const void* q, const void* k0, const void* v0, const void*
 // Plain C entry points (bound with ctypes). Each launches on the given stream,
 // does not synchronise, and returns cudaGetLastError() of the launch. s0, s1,
 // rate, scale: see Dropout (attention_tile.cuh).
-extern "C" int block_causal_attention_bwd(const void* q, const void* k, const void* v,
-                                          const void* o, const void* dout, const void* lse,
-                                          void* dq, void* dk, void* dv, int bh, int frames,
-                                          void* stream) {
-  return launch_block_causal_bwd<false>(q, k, v, o, dout, lse, dq, dk, dv, bh, frames,
-                                        Dropout{}, stream);
-}
-
-extern "C" int block_causal_attention_dropout_bwd(const void* q, const void* k, const void* v,
-                                                  const void* o, const void* dout,
-                                                  const void* lse, void* dq, void* dk,
-                                                  void* dv, int bh, int frames, unsigned s0,
-                                                  unsigned s1, float rate, float scale,
-                                                  void* stream) {
-  return launch_block_causal_bwd<true>(q, k, v, o, dout, lse, dq, dk, dv, bh, frames,
-                                       Dropout{s0, s1, rate, scale}, stream);
-}
-
 extern "C" int branch_attention_bwd(const void* q, const void* k0, const void* v0,
                                     const void* kb, const void* vb, const void* o,
                                     const void* dout, const void* lse, void* dq, void* dk0,

@@ -1,4 +1,4 @@
-// PTX helpers for Hopper (sm_90a): mbarriers, TMA tile loads and the
+// PTX helpers for Hopper (sm_90a): mbarriers, TMA tile and bulk loads and the
 // warpgroup products wgmma m64n64k16 (bf16 operands, f32 accumulators) over
 // 64 x 64 bf16 tiles that TMA wrote with its 128-byte swizzle.
 #pragma once
@@ -67,6 +67,17 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory at src into shared memory at
+// dst (both 16-byte aligned, bytes a multiple of 16); completion adds them to
+// bar's transaction count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -1,18 +1,27 @@
 """Branching attention: hand-written CUDA kernels and their plain twins.
 
-Counterpart of viewformer_tpu/ops/attention_pallas.py:
+Counterpart of viewformer_tpu/ops/attention_pallas.py, each kernel in the
+csrc/ source named beside it:
 
-  block_causal_attention_fwd  replaces _block_causal_kernel3 (kernel B1)
+  block_causal_attention_fwd  replaces _block_causal_kernel3 (kernel B1;
+                              attention_fwd_sm90.cu)
   branch_attention_fwd        replaces _branch_kernel3 (kernel B2), and the
                               dense _attend_cache of migt_incremental
-  block_causal_attention_bwd  replaces _block_causal_bwd_kernel3 (kernel B3)
+                              (attention_fwd_sm90.cu)
+  block_causal_attention_bwd  replaces _block_causal_bwd_kernel3 (kernel B3;
+                              attention_bwd_sm90.cu)
   branch_attention_bwd        replaces _branch_bwd_kernel3 and the sum over
-                              branches of _fb_bwd (kernel B4)
-  block_causal_attention_dropout_fwd  replaces _block_causal_do_kernel3 (B5)
-  block_causal_attention_dropout_bwd  replaces _block_causal_do_bwd_kernel3 (B6)
-  branch_attention_dropout_fwd        replaces _branch_do_kernel3 (B7)
+                              branches of _fb_bwd (kernel B4;
+                              branching_attention_bwd.cu)
+  block_causal_attention_dropout_fwd  replaces _block_causal_do_kernel3 (B5;
+                                      branching_attention.cu)
+  block_causal_attention_dropout_bwd  replaces _block_causal_do_bwd_kernel3
+                                      (B6; attention_bwd_sm90.cu)
+  branch_attention_dropout_fwd        replaces _branch_do_kernel3 (B7;
+                                      branching_attention.cu)
   branch_attention_dropout_bwd        replaces _branch_do_bwd_kernel3 and the
-                                      sum over branches of _fbd_bwd (B8)
+                                      sum over branches of _fbd_bwd (B8;
+                                      branching_attention_bwd.cu)
 
 B5-B8 are B1-B4 with inverted dropout on the softmax weights, the mask
 hashed from two uint32 seed words and each weight's global index
@@ -24,7 +33,9 @@ Operands keep the Pallas layout, [batch*heads, frames*L, dh]. No 1/sqrt(dh)
 scale, f32 scores and softmax, weights rounded to the value dtype before the
 product with V (the reference's conventions). The forward kernels can also
 return each query row's f32 log-sum-exp, which the backward kernels
-recompute the softmax weights from.
+recompute the softmax weights from. B3 and B6 also take each row's
+D = rowsum(dO * O) (attention_bwd_delta_plain), which their C entry computes
+in a first pass into scratch the wrapper allocates.
 
 Each public function dispatches on where its tensors lie: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (built from
@@ -47,7 +58,8 @@ _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
 # each source is one shared library; the headers are compiled into them
-_SOURCES = ('attention_fwd_sm90.cu', 'branching_attention.cu', 'branching_attention_bwd.cu')
+_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu', 'branching_attention.cu',
+            'branching_attention_bwd.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
 # weights a plain dropout twin holds at a time (f32 scores, int64 indices):
@@ -111,6 +123,14 @@ def branch_attention_plain(q, k0, v0, kb, vb, L, first_q_frame, n_old, return_ls
     out = out + torch.einsum('sbtlm,sbtmd->sbtld', weights[..., F0L:].to(vb.dtype), vbf)
     out = out.reshape(G, TQL, dh).to(q.dtype)
     return (out, torch.logsumexp(joint, -1).reshape(G, TQL)) if return_lse else out
+
+
+def attention_bwd_delta_plain(out, dout):
+    """D = rowsum(dout * out) in f32 (or wider), [BH, T*L]: the backward
+    kernels' stand-in for the reference's rowsum(dP * W), equal to it up to
+    the rounding of out, with or without dropout, as out is the dropped
+    output (the D pass of B3/B6)."""
+    return (_wide(dout) * _wide(out)).sum(-1)
 
 
 def block_causal_attention_bwd_plain(q, k, v, dout, L):
@@ -422,27 +442,31 @@ def build_log():
     return '\n'.join(text)
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_DROP = [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2  # seed words, rate, scale
+# the argument types of each C entry point of csrc/*.cu (each returns int);
+# the stream is the last pointer
+_SIGNATURES = {
+    'block_causal_attention_fwd': [_P] * 5 + [_I] * 2 + [_P],
+    'branch_attention_fwd': [_P] * 7 + [_I] * 6 + [_P],
+    'block_causal_attention_bwd': [_P] * 10 + [_I] * 2 + [_P],
+    'branch_attention_bwd': [_P] * 13 + [_I] * 3 + [_P],
+    'block_causal_attention_dropout_fwd': [_P] * 5 + [_I] * 2 + _DROP + [_P],
+    'branch_attention_dropout_fwd': [_P] * 7 + [_I] * 4 + _DROP + [_P],
+    'block_causal_attention_dropout_bwd': [_P] * 10 + [_I] * 2 + _DROP + [_P],
+    'branch_attention_dropout_bwd': [_P] * 13 + [_I] * 4 + _DROP + [_P],
+}
+
+
 def _kernels():
     """The libraries' C entry points by name, bound once."""
     global _functions
     if _functions is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        drop = [ctypes.c_uint32] * 2 + [ctypes.c_float] * 2  # seed words, rate, scale
-        signatures = {
-            'block_causal_attention_fwd': [p] * 5 + [i] * 2 + [p],
-            'branch_attention_fwd': [p] * 7 + [i] * 6 + [p],
-            'block_causal_attention_bwd': [p] * 9 + [i] * 2 + [p],
-            'branch_attention_bwd': [p] * 13 + [i] * 3 + [p],
-            'block_causal_attention_dropout_fwd': [p] * 5 + [i] * 2 + drop + [p],
-            'branch_attention_dropout_fwd': [p] * 7 + [i] * 4 + drop + [p],
-            'block_causal_attention_dropout_bwd': [p] * 9 + [i] * 2 + drop + [p],
-            'branch_attention_dropout_bwd': [p] * 13 + [i] * 4 + drop + [p],
-        }
         libs = [ctypes.CDLL(path) for path in build().values()]
         functions = {}
-        for name, argtypes in signatures.items():
+        for name, argtypes in _SIGNATURES.items():
             fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
-            fn.argtypes, fn.restype = argtypes, i
+            fn.argtypes, fn.restype = argtypes, _I
             functions[name] = fn
         _functions = functions
     return _functions
@@ -468,9 +492,9 @@ def _check_operands(name, L, *tensors):
 
 def _check_lse(name, lse, rows, device):
     if (lse.device != device or lse.dtype != torch.float32 or not lse.is_contiguous()
-            or tuple(lse.shape) != tuple(rows)):
-        raise ValueError(f'{name}: lse must be contiguous f32 {tuple(rows)} on {device}, got '
-                         f'{lse.dtype} {tuple(lse.shape)} on {lse.device}')
+            or tuple(lse.shape) != tuple(rows) or lse.data_ptr() % 16):
+        raise ValueError(f'{name}: lse must be contiguous 16-byte aligned f32 {tuple(rows)} on '
+                         f'{device}, got {lse.dtype} {tuple(lse.shape)} on {lse.device}')
 
 
 def _dropout_args(name, seeds, rate):
@@ -568,28 +592,35 @@ def branch_attention_fwd(q, k0, v0, kb, vb, L, first_q_frame, n_old, return_lse=
     return (out, lse) if return_lse else out
 
 
+def _block_causal_bwd(name, q, k, v, out, dout, lse, L, *drop):
+    """Launch B3 (no drop) or B6 (drop = (s0, s1, rate, scale)): checks,
+    D's scratch and the outputs; returns (dq, dk, dv)."""
+    _check_operands(name, L, q, k, v, out, dout)
+    BH, TL, _ = q.shape
+    if any(t.shape != q.shape for t in (k, v, out, dout)) or TL % L or BH * TL >= 1 << 31:
+        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, '
+                         f'v {tuple(v.shape)}, out {tuple(out.shape)}, dout {tuple(dout.shape)}')
+    _check_lse(name, lse, (BH, TL), q.device)
+    delta = torch.empty((BH, TL), dtype=torch.float32, device=q.device)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, *(t.data_ptr() for t in (q, k, v, out, dout, lse, delta, dq, dk, dv)), BH,
+                TL // L, *drop, stream)
+    return dq, dk, dv
+
+
 def block_causal_attention_bwd(q, k, v, out, dout, lse, L):
     """Kernel B3: (dq, dk, dv) of block_causal_attention_fwd at output `out`
     with row log-sum-exp `lse` (both from the forward), for the output
     gradient dout; all [BH, T*L, dh] (see block_causal_attention_bwd_plain,
     which needs neither out nor lse)."""
-    if not _on_device('block_causal_attention_bwd', q):
+    name = 'block_causal_attention_bwd'
+    if not _on_device(name, q):
         return block_causal_attention_bwd_plain(q, k, v, dout, L)
-    _check_operands('block_causal_attention_bwd', L, q, k, v, out, dout)
-    BH, TL, _ = q.shape
-    if any(t.shape != q.shape for t in (k, v, out, dout)) or TL % L or 2 * BH > 65535:
-        raise ValueError(f'block_causal_attention_bwd: shapes q {tuple(q.shape)}, '
-                         f'k {tuple(k.shape)}, v {tuple(v.shape)}, out {tuple(out.shape)}, '
-                         f'dout {tuple(dout.shape)}')
-    _check_lse('block_causal_attention_bwd', lse, (BH, TL), q.device)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch('block_causal_attention_bwd', *(t.data_ptr() for t in
-                                                (q, k, v, out, dout, lse, dq, dk, dv)),
-                BH, TL // L, stream)
+    grads = _block_causal_bwd(name, q, k, v, out, dout, lse, L)
     block_causal_attention_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 def branch_attention_bwd(q, k0, v0, kb, vb, out, dout, lse, L):
@@ -666,20 +697,9 @@ def block_causal_attention_dropout_bwd(q, k, v, out, dout, lse, L, seeds, rate):
     name = 'block_causal_attention_dropout_bwd'
     if not _on_device(name, q):
         return block_causal_attention_dropout_bwd_plain(q, k, v, dout, L, seeds, rate)
-    _check_operands(name, L, q, k, v, out, dout)
-    BH, TL, _ = q.shape
-    if any(t.shape != q.shape for t in (k, v, out, dout)) or TL % L or 2 * BH > 65535:
-        raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, '
-                         f'v {tuple(v.shape)}, out {tuple(out.shape)}, dout {tuple(dout.shape)}')
-    _check_lse(name, lse, (BH, TL), q.device)
-    drop = _dropout_args(name, seeds, rate)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(name, *(t.data_ptr() for t in (q, k, v, out, dout, lse, dq, dk, dv)), BH,
-                TL // L, *drop, stream)
+    grads = _block_causal_bwd(name, q, k, v, out, dout, lse, L, *_dropout_args(name, seeds, rate))
     block_causal_attention_dropout_bwd.launches += 1
-    return dq, dk, dv
+    return grads
 
 
 def branch_attention_dropout_bwd(q, k0, v0, kb, vb, out, dout, lse, L, seeds, rate):
