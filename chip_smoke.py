@@ -17,13 +17,15 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      and, with their log-sum-exp output, at the training shapes (B1 at even
      T = 20); the backward kernels B3/B4 at the training shapes; the
      dropout kernels B5-B8 at the training shapes (rate 0.1, fixed seed
-     words); B3 and B6 also at T = 1 and 19 (BH = 24), where their CTA plan
-     has idle warpgroups and a lone last frame, and with the device time of
-     their D pass and main kernel (torch.profiler); then an exact probe of
-     B5's and B7's dropout masks: with q = k = 0 and V the identity on one
-     key frame, the output's nonzeros are that frame's keep bits, held bit
-     for bit against the plain twins' mask; and of B6's, through dV (key
-     CTAs) and dQ (query CTAs);
+     words), each backward kernel with the device time of its D pass and
+     main kernel (torch.profiler); B3 and B6 also at T = 1 and 19 (BH = 24),
+     B4 and B8 at T = 1 and 19 with S = 1 and 2 branches (BH0 = 24), where
+     their CTA plans have idle warpgroups and a lone last frame; then an
+     exact probe of B5's and B7's dropout masks: with q = k = 0 and V the
+     identity on one key frame, the output's nonzeros are that frame's keep
+     bits, held bit for bit against the plain twins' mask; of B6's, through
+     dV (key CTAs) and dQ (query CTAs); and of B8's, through dV0, dVb and
+     dQ on both key sets;
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
@@ -258,6 +260,7 @@ def kernel_checks(ac, log):
         results[name]['max_abs_err'] = max(results[name]['max_abs_err'], err)
     results.update(training_kernel_checks(ac, rand, log))
     block_causal_bwd_edges(ac, rand, results, log)
+    branch_bwd_edges(ac, rand, results, log)
     dropout_probes(ac, log)
     return results
 
@@ -266,9 +269,9 @@ def training_kernel_checks(ac, rand, log):
     """Phase 2 at the training path's shapes (B=64, T=20, L=64, dh=64,
     H=12, S=2 branches): B1/B2 and B5/B7 (rate 0.1, seed words WORDS) with
     the log-sum-exp, then B3/B4 and B6/B8 from the same bf16 inputs (out and
-    lse from the forward) against their plain twins in f32, B3/B6 with the
-    device time of each of their two kernels. Returns {kernel name: record}
-    for B3-B8."""
+    lse from the forward) against their plain twins in f32, with the device
+    time of each of their two kernels. Returns {kernel name: record} for
+    B3-B8."""
     BH, T, L = TRAIN_B * 12, 20, 64
     q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
     qb, kb, vb, doutb = (rand(2 * BH, T * L, 64) for _ in range(4))
@@ -324,9 +327,9 @@ def training_kernel_checks(ac, rand, log):
                   'shapes': [list(t.shape) for t in inputs + grads], 'max_abs_err': errs,
                   'rel_err': rels, 'tol': GRAD_TOL, 'ms': ms, 'plain_ms': plain_ms,
                   **yardsticks(bwd_name, inputs, bwd_args, L)}
-        if bwd_name.startswith('block_causal'):  # B3/B6: the D pass, then the main kernel
-            record['device_ms_by_kernel'] = device_ms_by_kernel(
-                lambda: bwd(*inputs, out, *grads, lse, *bwd_args))
+        # the D pass, then the main kernel
+        record['device_ms_by_kernel'] = device_ms_by_kernel(
+            lambda: bwd(*inputs, out, *grads, lse, *bwd_args))
         emit(record, log)
         check(finite, f'{bwd_name}: non-finite gradient')
         check(max(rels) <= GRAD_TOL, f'{bwd_name}: rel err {rels} > {GRAD_TOL}')
@@ -338,7 +341,9 @@ def training_kernel_checks(ac, rand, log):
 
 def device_ms_by_kernel(fn, n=5):
     """{CUDA kernel name: device ms a call} of the kernels fn launches, by
-    torch.profiler over n calls after one warm-up."""
+    torch.profiler over n calls after one warm-up: each kernel's total over
+    the launches the profiler recorded, which may be fewer than n (it can
+    drop a call's events), divided by their count."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -347,7 +352,7 @@ def device_ms_by_kernel(fn, n=5):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / n for e in prof.key_averages()
+    return {e.key: e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
             if e.self_device_time_total > 0}
 
 
@@ -377,6 +382,44 @@ def block_causal_bwd_edges(ac, rand, results, log):
             check(finite, f'{name} (T={T}): non-finite gradient')
             check(max(rels) <= GRAD_TOL, f'{name} (T={T}): rel err {rels} > {GRAD_TOL}')
             results[name]['max_abs_err'] = max(results[name]['max_abs_err'], max(errs))
+
+
+def branch_bwd_edges(ac, rand, results, log):
+    """Phase 2: B4 and B8 against their plain twins where their CTA plan has
+    its edge cases, at BH0 = 24: T = 1 (no query sees a K0 frame, so dK0
+    and dV0 must be exactly 0, written by key CTAs that stream nothing),
+    T = 19 (the last pair of frames has one), each with S = 1 branch (a key
+    CTA streams one branch row) and S = 2."""
+    BH0, L = 24, 64
+    for T in (1, 19):
+        for S in (1, 2):
+            k0, v0 = rand(BH0, T * L, 64), rand(BH0, T * L, 64)
+            q, kb, vb, dout = (rand(S * BH0, T * L, 64) for _ in range(4))
+            for fwd, bwd, plain, args in (
+                    (ac.branch_attention_fwd, ac.branch_attention_bwd,
+                     ac.branch_attention_bwd_plain, (L,)),
+                    (ac.branch_attention_dropout_fwd, ac.branch_attention_dropout_bwd,
+                     ac.branch_attention_dropout_bwd_plain, (L, WORDS, RATE))):
+                name = bwd.__name__
+                fwd_args = (L, 0, T) if fwd is ac.branch_attention_fwd else args
+                out, lse = fwd(q, k0, v0, kb, vb, *fwd_args, return_lse=True)
+                grads = bwd(q, k0, v0, kb, vb, out, dout, lse, *args)
+                torch.cuda.synchronize()
+                ref = plain(*(t.float() for t in (q, k0, v0, kb, vb, dout)), *args)
+                errs = [(g.float() - r).abs().max().item() for g, r in zip(grads, ref)]
+                # at T = 1 the plain dK0/dV0 are 0: their error is absolute
+                rels = [e / (r.abs().max().item() or 1.0) for e, r in zip(errs, ref)]
+                finite = all(torch.isfinite(g).all().item() for g in grads)
+                emit({'phase': 'kernel', 'name': name,
+                      'form': f'CTA plan edge: T={T}, S={S}, BH0={BH0}',
+                      'shapes': [list(t.shape) for t in (q, k0, v0, kb, vb, dout)],
+                      'max_abs_err': errs, 'rel_err': rels, 'tol': GRAD_TOL}, log)
+                check(finite, f'{name} (T={T}, S={S}): non-finite gradient')
+                check(max(rels) <= GRAD_TOL, f'{name} (T={T}, S={S}): rel err {rels} > {GRAD_TOL}')
+                if T == 1:
+                    check(not grads[1].any().item() and not grads[2].any().item(),
+                          f'{name} (T=1, S={S}): dK0/dV0 are not 0')
+                results[name]['max_abs_err'] = max(results[name]['max_abs_err'], max(errs))
 
 
 def block_causal_bwd_mask_probe(ac, mask):
@@ -422,6 +465,63 @@ def block_causal_bwd_mask_probe(ac, mask):
     return {'key_ctas_dv': bad_key, 'query_ctas_dq': bad_query}
 
 
+def branch_bwd_mask_probe(ac, mask, own, bh0):
+    """Phase 2: B8's dropout mask, bit for bit against B7's index space:
+    mask = hash_keep over branch_weight_indices' K0 keys ([G, query, key]
+    bool) and own over its own-frame keys ([G, T, query, key]). q = k0 =
+    kb = 0 makes every visible weight of a row equal, W > 0; out and lse
+    come from B7 on the same inputs. dK0/dV0 sum over the S = G / bh0
+    branches of a row, so dO is nonzero in one branch's rows at a time.
+    Through dV0 = sum_s (W keep)_old^T dO and dVb = (W keep)_own^T dO: with
+    dO the identity on the rows of frame t of branch s (0 elsewhere),
+    dV0[r, key, i] = W keep(r + s*bh0, t*64 + i, key) over the K0 frames
+    below t, and dVb on frame t of those rows holds the own-frame bits.
+    Through dQ = dS_old K0 + dS_own Kb: with V and dO 1 in column 0
+    (dP = 1) and out = 0 (D = 0), dS = W keep; K0 the identity on key frame
+    f and kb = 0 give the bits of the queries of frames > f on frame f, and
+    K0 = 0 with kb the identity on every frame the own-frame bits. Every
+    branch, frame t and f. Returns the mismatched bits of each output."""
+    G, TL, L = mask.shape[0], mask.shape[1], 64
+    T, device = TL // L, mask.device
+    zeros = lambda rows: torch.zeros(rows, TL, L, dtype=torch.bfloat16, device=device)  # noqa: E731
+    eye = torch.eye(L, dtype=torch.bfloat16, device=device)
+    frames = torch.arange(TL, device=device) // L
+    own_t = own.transpose(2, 3)  # [G, T, key, query]
+
+    q = zeros(G)
+    k0 = zeros(bh0)
+    out, lse = ac.branch_attention_dropout_fwd(q, k0, k0, q, q, L, WORDS, RATE, return_lse=True)
+    bad = {'dv0': 0, 'dvb': 0, 'dq_k0': 0, 'dq_own': 0}
+    for s in range(G // bh0):
+        rows = slice(s * bh0, (s + 1) * bh0)
+        for t in range(T):
+            dout = zeros(G)
+            dout[rows, t * L:(t + 1) * L] = eye
+            _, _, dv0, _, dvb = ac.branch_attention_dropout_bwd(q, k0, k0, q, q, out, dout, lse, L,
+                                                                WORDS, RATE)
+            expected = mask[rows, t * L:(t + 1) * L].transpose(1, 2) & (frames < t)[None, :, None]
+            bad['dv0'] += ((dv0 != 0) != expected).sum().item()
+            expected = torch.zeros(G, TL, L, dtype=torch.bool, device=device)
+            expected[rows, t * L:(t + 1) * L] = own_t[rows, t]
+            bad['dvb'] += ((dvb != 0) != expected).sum().item()
+    column0 = zeros(G)
+    column0[..., 0] = 1
+    v0 = zeros(bh0)
+    v0[..., 0] = 1
+    for f in range(T):
+        k0 = zeros(bh0)
+        k0[:, f * L:(f + 1) * L] = eye
+        dq = ac.branch_attention_dropout_bwd(q, k0, v0, q, column0, q, column0, lse, L, WORDS,
+                                             RATE)[0]
+        expected = mask[:, :, f * L:(f + 1) * L] & (frames > f)[None, :, None]
+        bad['dq_k0'] += ((dq != 0) != expected).sum().item()
+    kb = eye.repeat(T, 1).expand(G, TL, L).contiguous()
+    dq = ac.branch_attention_dropout_bwd(q, zeros(bh0), v0, kb, column0, q, column0, lse, L,
+                                         WORDS, RATE)[0]
+    bad['dq_own'] = ((dq.reshape(G, T, L, L) != 0) != own).sum().item()
+    return bad
+
+
 def dropout_probes(ac, log):
     """Phase 2: the exact dropout masks of B5 and B7 at the training shapes.
     With q = k = 0 every visited weight is the same, so with V the identity
@@ -430,7 +530,8 @@ def dropout_probes(ac, log):
     for that frame. Held bit for bit against the plain twins' mask
     (hash_keep over bc_weight_index / branch_weight_indices): B5 over every
     key frame, B7 over every K0 frame and (vb the identity on every frame)
-    the own frames; B6 against B5's mask (block_causal_bwd_mask_probe)."""
+    the own frames; B6 against B5's mask (block_causal_bwd_mask_probe) and
+    B8 against B7's (branch_bwd_mask_probe)."""
     from viewformer_tpu_torch.ops.dropout import hash_keep
 
     BH, T, L = TRAIN_B * 12, 20, 64
@@ -474,20 +575,25 @@ def dropout_probes(ac, log):
         expected = mask[:, :, f * L:(f + 1) * L] & (frames > f)[None, :, None]
         bad += ((out != 0) != expected).sum().item()
     kept['branch_attention_dropout_fwd'] = mask.float().mean().item()
-    del mask
     own = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[1])  # [G, T, L, L]
     out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH), zeros(BH), zeros(G),
                                           eye.repeat(T, 1).expand(G, TL, L).contiguous(),
                                           L, WORDS, RATE)
     bad_own = ((out.reshape(G, T, L, L) != 0) != own).sum().item()
     mismatches['branch_attention_dropout_fwd'] = bad + bad_own
+    del out
+    bwd_bad = branch_bwd_mask_probe(ac, mask, own, BH)
+    emit({'phase': 'dropout_mask_probe_bwd', 'name': 'branch_attention_dropout_bwd',
+          'rate': RATE, 'seed_words': WORDS, 'shape': [G, TL, L], 'bh0': BH,
+          'mismatched_bits': bwd_bad}, log)
+    mismatches['branch_attention_dropout_bwd'] = sum(bwd_bad.values())
+    del mask, own
     emit({'phase': 'dropout_mask_probe', 'rate': RATE, 'seed_words': WORDS,
           'shapes': {'block_causal': [BH, TL, L], 'branch': [G, TL, L]},
           'mismatched_bits': mismatches, 'branch_own_frame_mismatched_bits': bad_own,
           'kept_share_of_all_weights': kept}, log)
     for name, count in mismatches.items():
         check(count == 0, f'{name}: {count} dropout mask bits differ from the plain twin')
-    del own, out
     torch.cuda.empty_cache()
 
 
@@ -787,11 +893,11 @@ def main():
         'block_causal_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':52'),
         'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':69'),
         'block_causal_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':149'),
-        'branch_attention_bwd': (csrc + 'branching_attention_bwd.cu', ':182'),
+        'branch_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':182'),
         'block_causal_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':331'),
         'block_causal_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':347'),
         'branch_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':381'),
-        'branch_attention_dropout_bwd': (csrc + 'branching_attention_bwd.cu', ':414'),
+        'branch_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':414'),
     }
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': sources[name][0],

@@ -2,8 +2,8 @@
 package: the plain twins of kernels B3/B4 against the Pallas backward kernels
 in interpret mode and against jax.vjp of the dense attention, the autograd
 Functions by gradcheck, the log-sum-exp of the forward, attention dropout's
-need for seeds, and the ctypes binding of every kernel's C entry point
-against its declaration in csrc/."""
+need for seeds, the branch kernels' shape gate, and the ctypes binding of
+every kernel's C entry point against its declaration in csrc/."""
 import ctypes
 import glob
 import os
@@ -53,19 +53,25 @@ def test_block_causal_bwd_plain_matches_jax():
         _close(p.numpy().reshape(d.shape), d)
 
 
-def test_branch_bwd_plain_matches_jax():
-    k0, v0 = _rand(0, B, H, T, L, DH), _rand(1, B, H, T, L, DH)
-    qb, kb, vb, do = (_rand(i, S, B, H, T, L, DH) for i in (2, 3, 4, 5))
-    rb = lambda x: x.reshape(S * B * H, TL, DH)  # noqa: E731
-    r0 = lambda x: x.reshape(B * H, TL, DH)  # noqa: E731
+@pytest.mark.parametrize('frames,branches', [(1, 2), (4, 2), (5, 1), (3, 3)])
+def test_branch_bwd_plain_matches_jax(frames, branches):
+    """At the (T, S) where B4's CTA plan has its edges: T = 1 (no query sees
+    a K0 frame: dK0 = dV0 = 0), odd T (a lone last frame), S = 1 and S = 3
+    branches a K0 row."""
+    tl = frames * L
+    k0, v0 = _rand(0, B, H, frames, L, DH), _rand(1, B, H, frames, L, DH)
+    qb, kb, vb, do = (_rand(i, branches, B, H, frames, L, DH) for i in (2, 3, 4, 5))
+    rb = lambda x: x.reshape(branches * B * H, tl, DH)  # noqa: E731
+    r0 = lambda x: x.reshape(B * H, tl, DH)  # noqa: E731
     # the Pallas kernel takes K0/V0 broadcast over the branches and returns
     # dK0/dV0 per branch; _fb_bwd sums them over S (attention_pallas.py:630-631)
-    bcast = lambda x: np.broadcast_to(r0(x)[None], (S, B * H, TL, DH)).reshape(-1, TL, DH)  # noqa: E731
+    bcast = lambda x: np.broadcast_to(  # noqa: E731
+        r0(x)[None], (branches, B * H, tl, DH)).reshape(-1, tl, DH)
     dq, dk0, dv0, dkb, dvb = ap._run_branch_bwd(
         *(jnp.asarray(x) for x in (rb(qb), bcast(k0), bcast(v0), rb(kb), rb(vb), rb(do))),
         L, interpret=True)
-    pallas = (dq, dk0.reshape(S, B * H, TL, DH).sum(0), dv0.reshape(S, B * H, TL, DH).sum(0),
-              dkb, dvb)
+    pallas = (dq, dk0.reshape(branches, B * H, tl, DH).sum(0),
+              dv0.reshape(branches, B * H, tl, DH).sum(0), dkb, dvb)
     _, vjp = jax.vjp(jba.branch_attention, *map(jnp.asarray, (qb, k0, v0, kb, vb)))
     dense = vjp(jnp.asarray(do))
     port = ac.branch_attention_bwd_plain(_t(rb(qb)), _t(r0(k0)), _t(r0(v0)), _t(rb(kb)),
@@ -73,6 +79,8 @@ def test_branch_bwd_plain_matches_jax():
     for p, pl, d in zip(port, pallas, dense):
         _close(p.numpy(), pl)
         _close(p.numpy().reshape(d.shape), d)
+    if frames == 1:
+        assert not port[1].any() and not port[2].any()
 
 
 def test_multi_end_block_attention_grads_match_jax():
@@ -162,6 +170,28 @@ def test_backward_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match='no kernel'):
         ac.branch_attention_bwd(x, x, x, x, x, x, x, lse, 64)
     assert all(fn.launches == 0 for fn in ac.KERNELS)
+
+
+def test_branch_shape_gate():
+    """B4 and B8 run a 1-D grid, so their shape gate lets G + BH0 > 65535
+    pass; B7's 2-D grid still refuses it. The gate on its own: on a meta
+    tensor the wrappers raise 'no kernel' before they reach it."""
+    G, BH0 = 3 * 16384, 16384  # G + BH0 = 65536
+    q = torch.empty(G, L, 64, dtype=torch.bfloat16, device='meta')
+    k0 = torch.empty(BH0, L, 64, dtype=torch.bfloat16, device='meta')
+    for name in ('branch_attention_bwd', 'branch_attention_dropout_bwd'):
+        assert ac._check_one_shot_branch(name, q, k0, k0, q, q, L, q, q) == (G, BH0, L)
+    with pytest.raises(ValueError, match='branch_attention_dropout_fwd: shapes'):
+        ac._check_one_shot_branch('branch_attention_dropout_fwd', q, k0, k0, q, q, L,
+                                  max_rows=ac._B7_MAX_ROWS)
+    q7, k7 = q[:2 * (BH0 - 1)], k0[:BH0 - 1]  # G + BH0 = 49149: within B7's grid
+    assert ac._check_one_shot_branch('branch_attention_dropout_fwd', q7, k7, k7, q7, q7, L,
+                                     max_rows=ac._B7_MAX_ROWS) == (2 * (BH0 - 1), BH0 - 1, L)
+    lse = torch.empty(G, L, device='meta')
+    for fn, extra in ((ac.branch_attention_bwd, ()), (ac.branch_attention_dropout_bwd,
+                                                       ((1, 2), 0.1))):
+        with pytest.raises(ValueError, match='no kernel'):
+            fn(q, k0, k0, q, q, q, q, lse, L, *extra)
 
 
 def _c_entry_points():

@@ -121,20 +121,20 @@ def test_weight_indices_match_pallas(T, L, dh):
     np.testing.assert_array_equal(own.numpy(), host_tile[:, query, column])
 
 
-def _pallas_branch_inputs(T, L, dh):
+def _pallas_branch_inputs(T, L, dh, branches=S):
     TL = T * L
-    q, kb, vb, do = (_rand(10 + i, S * BH, TL, dh) for i in range(4))
+    q, kb, vb, do = (_rand(10 + i, branches * BH, TL, dh) for i in range(4))
     k0, v0 = _rand(20, BH, TL, dh), _rand(21, BH, TL, dh)
     return q, k0, v0, kb, vb, do
 
 
-def _bcast(x):
-    return np.concatenate([x] * S)
-
-
-@pytest.mark.parametrize('kernel', ['B5', 'B6', 'B7', 'B8'])
+# the branch kernels also at S = 1 branch (B8's key CTAs then stream one
+# branch row); S is the branches a K0 row has
+@pytest.mark.parametrize('kernel,branches', [('B5', S), ('B6', S), ('B7', S), ('B8', S),
+                                             ('B7', 1), ('B8', 1)],
+                         ids=['B5', 'B6', 'B7', 'B8', 'B7-S1', 'B8-S1'])
 @pytest.mark.parametrize('T,L,dh', SHAPES)
-def test_dropout_twins_match_pallas(kernel, T, L, dh):
+def test_dropout_twins_match_pallas(kernel, branches, T, L, dh):
     """Each plain twin against its Pallas kernel in interpret mode, with the
     same seed words at rate 0.1: every output and gradient within 1e-5."""
     TL = T * L
@@ -152,8 +152,9 @@ def test_dropout_twins_match_pallas(kernel, T, L, dh):
             port = ac.block_causal_attention_dropout_bwd_plain(*map(_t, (q, k, v, do)), L, WORDS,
                                                                RATE)
     else:
-        q, k0, v0, kb, vb, do = _pallas_branch_inputs(T, L, dh)
-        operands = tuple(map(jnp.asarray, (q, _bcast(k0), _bcast(v0), kb, vb)))
+        q, k0, v0, kb, vb, do = _pallas_branch_inputs(T, L, dh, branches)
+        bcast = lambda x: np.concatenate([x] * branches)  # noqa: E731
+        operands = tuple(map(jnp.asarray, (q, bcast(k0), bcast(v0), kb, vb)))
         if kernel == 'B7':
             expected = [ap._run_branch_do(*operands, seeds, L, RATE, interpret=True)]
             port = [ac.branch_attention_dropout_plain(*map(_t, (q, k0, v0, kb, vb)), L, WORDS,
@@ -162,8 +163,8 @@ def test_dropout_twins_match_pallas(kernel, T, L, dh):
             dq, dk0, dv0, dkb, dvb = ap._run_branch_do_bwd(*operands, seeds, jnp.asarray(do), L,
                                                            RATE, interpret=True)
             # _fbd_bwd sums dK0/dV0 over the branches (attention_pallas.py:708-709)
-            expected = [dq, np.asarray(dk0).reshape(S, BH, TL, dh).sum(0),
-                        np.asarray(dv0).reshape(S, BH, TL, dh).sum(0), dkb, dvb]
+            expected = [dq, np.asarray(dk0).reshape(branches, BH, TL, dh).sum(0),
+                        np.asarray(dv0).reshape(branches, BH, TL, dh).sum(0), dkb, dvb]
             port = ac.branch_attention_dropout_bwd_plain(*map(_t, (q, k0, v0, kb, vb, do)), L,
                                                          WORDS, RATE)
     assert len(port) == len(expected)

@@ -15,8 +15,8 @@
 // softmax, the (unnormalised) softmax weights rounded to bf16 before the
 // product with V, f32 accumulation. With a non-null lse pointer each query
 // row's f32 log-sum-exp lse = m + log(l), in natural log, is written for the
-// backward kernels (B3 in attention_bwd_sm90.cu, B4 in
-// branching_attention_bwd.cu), which recompute the weights from it.
+// backward kernels (B3 and B4 in attention_bwd_sm90.cu), which recompute
+// the weights from it.
 //
 // What bounds them: at the main path's shapes each (query frame, key frame)
 // pair is 1 MFLOP on 16 KB of K/V, so B1 and B2's one-shot form are bound by

@@ -1,7 +1,8 @@
-// Tile geometry shared by the branching attention kernels (forward and
-// backward): one frame of L = 64 tokens at head width dh = 64, as one
-// contiguous [64, 64] bf16 tile of a [rows, frames * 64, 64] operand; and the
-// hash of the in-kernel attention dropout.
+// Tile geometry of the WMMA dropout forward kernels B5 and B7
+// (branching_attention.cu): one frame of L = 64 tokens at head width
+// dh = 64, as one contiguous [64, 64] bf16 tile of a [rows, frames * 64, 64]
+// operand; and the hash of the in-kernel attention dropout, which the
+// backward kernels (attention_bwd_sm90.cu) share.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,8 +32,8 @@ __device__ inline void load_tile(bf16* dst, const bf16* src) {
 // u = (h >> 8) / 2^24 >= rate, compared in f32, and a kept weight is scaled by
 // `scale`. The mask is a pure function of (seeds, index), so a backward kernel
 // regenerates it and nothing is saved. All index and hash arithmetic is uint32
-// and wraps, as the reference's does. (B6, in attention_bwd_sm90.cu, runs the
-// same hash and test taken apart: keep_factors there.)
+// and wraps, as the reference's does. (B6 and B8, in attention_bwd_sm90.cu,
+// run the same hash and test taken apart: keep_factors there.)
 struct Dropout {
   unsigned s0, s1;  // the seed words
   float rate;

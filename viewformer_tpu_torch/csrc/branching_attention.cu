@@ -27,8 +27,8 @@
 //
 // For training, both kernels can also write each query row's f32
 // log-sum-exp of its scores, lse = m + log(l) from the online softmax, which
-// the backward kernels (B6 in attention_bwd_sm90.cu, B8 in
-// branching_attention_bwd.cu) recompute the weights from.
+// the backward kernels (B6 and B8 in attention_bwd_sm90.cu) recompute the
+// weights from.
 //
 // Design. The Pallas kernels keep all of one (batch, head)'s K and V in VMEM
 // and finish in one pass. At T*L = 1280 and dh = 64, K+V of one (b, h) in bf16

@@ -12,7 +12,7 @@ csrc/ source named beside it:
                               attention_bwd_sm90.cu)
   branch_attention_bwd        replaces _branch_bwd_kernel3 and the sum over
                               branches of _fb_bwd (kernel B4;
-                              branching_attention_bwd.cu)
+                              attention_bwd_sm90.cu)
   block_causal_attention_dropout_fwd  replaces _block_causal_do_kernel3 (B5;
                                       branching_attention.cu)
   block_causal_attention_dropout_bwd  replaces _block_causal_do_bwd_kernel3
@@ -21,7 +21,15 @@ csrc/ source named beside it:
                                       branching_attention.cu)
   branch_attention_dropout_bwd        replaces _branch_do_bwd_kernel3 and the
                                       sum over branches of _fbd_bwd (B8;
-                                      branching_attention_bwd.cu)
+                                      attention_bwd_sm90.cu)
+
+B1 and B2 (attention_fwd_sm90.cu) and the four backward kernels
+(attention_bwd_sm90.cu, one template) are built for Hopper: a producer warp
+feeds 64 x 64 bf16 frame tiles by TMA through an mbarrier ring to consumer
+warpgroups that multiply with wgmma and keep the softmax (and its gradient)
+on their accumulator registers. The tensor cores bound them at the training
+shapes; each source's note says what its design does about that. B5 and B7
+(branching_attention.cu) still run WMMA tiles through shared memory.
 
 B5-B8 are B1-B4 with inverted dropout on the softmax weights, the mask
 hashed from two uint32 seed words and each weight's global index
@@ -33,9 +41,9 @@ Operands keep the Pallas layout, [batch*heads, frames*L, dh]. No 1/sqrt(dh)
 scale, f32 scores and softmax, weights rounded to the value dtype before the
 product with V (the reference's conventions). The forward kernels can also
 return each query row's f32 log-sum-exp, which the backward kernels
-recompute the softmax weights from. B3 and B6 also take each row's
-D = rowsum(dO * O) (attention_bwd_delta_plain), which their C entry computes
-in a first pass into scratch the wrapper allocates.
+recompute the softmax weights from. The backward kernels also take each
+query row's D = rowsum(dO * O) (attention_bwd_delta_plain), which their C
+entry computes in a first pass into scratch the wrapper allocates.
 
 Each public function dispatches on where its tensors lie: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (built from
@@ -58,8 +66,7 @@ _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
 # each source is one shared library; the headers are compiled into them
-_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu', 'branching_attention.cu',
-            'branching_attention_bwd.cu')
+_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu', 'branching_attention.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
 # weights a plain dropout twin holds at a time (f32 scores, int64 indices):
@@ -450,11 +457,11 @@ _SIGNATURES = {
     'block_causal_attention_fwd': [_P] * 5 + [_I] * 2 + [_P],
     'branch_attention_fwd': [_P] * 7 + [_I] * 6 + [_P],
     'block_causal_attention_bwd': [_P] * 10 + [_I] * 2 + [_P],
-    'branch_attention_bwd': [_P] * 13 + [_I] * 3 + [_P],
+    'branch_attention_bwd': [_P] * 14 + [_I] * 3 + [_P],
     'block_causal_attention_dropout_fwd': [_P] * 5 + [_I] * 2 + _DROP + [_P],
     'branch_attention_dropout_fwd': [_P] * 7 + [_I] * 4 + _DROP + [_P],
     'block_causal_attention_dropout_bwd': [_P] * 10 + [_I] * 2 + _DROP + [_P],
-    'branch_attention_dropout_bwd': [_P] * 13 + [_I] * 4 + _DROP + [_P],
+    'branch_attention_dropout_bwd': [_P] * 14 + [_I] * 4 + _DROP + [_P],
 }
 
 
@@ -506,11 +513,20 @@ def _dropout_args(name, seeds, rate):
     return s0, s1, float(np.float32(rate)), float(np.float32(1.0 / (1.0 - rate)))
 
 
-def _check_one_shot_branch(name, q, k0, v0, kb, vb, L, *more):
+# B7's 2-D grid (query frames, G) bounds its rows; B4/B8 run a 1-D grid
+_B7_MAX_ROWS = 65535
+
+
+def _check_one_shot_branch(name, q, k0, v0, kb, vb, L, *more, max_rows=None):
+    """The shape gate of the one-shot branch kernels: q, kb, vb and `more`
+    [G, T*L, dh], k0/v0 [BH0, T*L, dh] with BH0 dividing G, fewer than 2^31
+    rows of G (the kernels' int32 row offsets) and, where the kernel's grid
+    needs it (B7: max_rows), G + BH0 <= max_rows. Returns (G, BH0, T*L)."""
     G, TL, _ = q.shape
     BH0 = k0.shape[0]
     if (any(t.shape != q.shape for t in (kb, vb) + more) or v0.shape != k0.shape
-            or k0.shape[1] != TL or TL % L or G % BH0 or G + BH0 > 65535):
+            or k0.shape[1] != TL or TL % L or G % BH0 or G * TL >= 1 << 31
+            or (max_rows is not None and G + BH0 > max_rows)):
         raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k0 {tuple(k0.shape)}, '
                          f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)}, '
                          f'others {[tuple(t.shape) for t in more]}')
@@ -610,6 +626,23 @@ def _block_causal_bwd(name, q, k, v, out, dout, lse, L, *drop):
     return dq, dk, dv
 
 
+def _branch_bwd(name, q, k0, v0, kb, vb, out, dout, lse, L, *drop):
+    """Launch B4 (no drop) or B8 (drop = (qb, s0, s1, rate, scale)): checks,
+    D's scratch and the outputs; returns (dq, dk0, dv0, dkb, dvb)."""
+    _check_operands(name, L, q, k0, v0, kb, vb, out, dout)
+    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L, out, dout)
+    _check_lse(name, lse, (G, TL), q.device)
+    delta = torch.empty((G, TL), dtype=torch.float32, device=q.device)
+    dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
+    dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, *(t.data_ptr() for t in (q, k0, v0, kb, vb, out, dout, lse, delta, dq, dk0,
+                                               dv0, dkb, dvb)),
+                G, BH0, TL // L, *drop, stream)
+    return dq, dk0, dv0, dkb, dvb
+
+
 def block_causal_attention_bwd(q, k, v, out, dout, lse, L):
     """Kernel B3: (dq, dk, dv) of block_causal_attention_fwd at output `out`
     with row log-sum-exp `lse` (both from the forward), for the output
@@ -629,22 +662,12 @@ def branch_attention_bwd(q, k0, v0, kb, vb, out, dout, lse, L):
     log-sum-exp `lse`, for the output gradient dout. q/kb/vb/out/dout
     [G, T*L, dh]; k0/v0 [BH0, T*L, dh]; dk0/dv0 are summed over the G/BH0
     branches that share each row (see branch_attention_bwd_plain)."""
-    if not _on_device('branch_attention_bwd', q):
+    name = 'branch_attention_bwd'
+    if not _on_device(name, q):
         return branch_attention_bwd_plain(q, k0, v0, kb, vb, dout, L)
-    _check_operands('branch_attention_bwd', L, q, k0, v0, kb, vb, out, dout)
-    G, BH0, TL = _check_one_shot_branch('branch_attention_bwd', q, k0, v0, kb, vb, L, out,
-                                        dout)
-    _check_lse('branch_attention_bwd', lse, (G, TL), q.device)
-    dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
-    dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch('branch_attention_bwd', *(t.data_ptr() for t in
-                                          (q, k0, v0, kb, vb, out, dout, lse, dq, dk0, dv0,
-                                           dkb, dvb)),
-                G, BH0, TL // L, stream)
+    grads = _branch_bwd(name, q, k0, v0, kb, vb, out, dout, lse, L)
     branch_attention_bwd.launches += 1
-    return dq, dk0, dv0, dkb, dvb
+    return grads
 
 
 def block_causal_attention_dropout_fwd(q, k, v, L, seeds, rate, return_lse=False):
@@ -677,7 +700,7 @@ def branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, seeds, rate, return_lse=F
     if not _on_device(name, q):
         return branch_attention_dropout_plain(q, k0, v0, kb, vb, L, seeds, rate, return_lse)
     _check_operands(name, L, q, k0, v0, kb, vb)
-    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L)
+    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L, max_rows=_B7_MAX_ROWS)
     drop = _dropout_args(name, seeds, rate)
     out = torch.empty_like(q)
     lse = torch.empty((G, TL), dtype=torch.float32, device=q.device) if return_lse else None
@@ -710,19 +733,10 @@ def branch_attention_dropout_bwd(q, k0, v0, kb, vb, out, dout, lse, L, seeds, ra
     name = 'branch_attention_dropout_bwd'
     if not _on_device(name, q):
         return branch_attention_dropout_bwd_plain(q, k0, v0, kb, vb, dout, L, seeds, rate)
-    _check_operands(name, L, q, k0, v0, kb, vb, out, dout)
-    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L, out, dout)
-    _check_lse(name, lse, (G, TL), q.device)
-    drop = _dropout_args(name, seeds, rate)
-    dq, dkb, dvb = (torch.empty_like(q) for _ in range(3))
-    dk0, dv0 = torch.empty_like(k0), torch.empty_like(v0)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch(name, *(t.data_ptr() for t in (q, k0, v0, kb, vb, out, dout, lse, dq, dk0, dv0,
-                                               dkb, dvb)),
-                G, BH0, TL // L, pick_q_block(TL, L), *drop, stream)
+    grads = _branch_bwd(name, q, k0, v0, kb, vb, out, dout, lse, L, pick_q_block(q.shape[1], L),
+                        *_dropout_args(name, seeds, rate))
     branch_attention_dropout_bwd.launches += 1
-    return dq, dk0, dv0, dkb, dvb
+    return grads
 
 
 KERNELS = (block_causal_attention_fwd, branch_attention_fwd, block_causal_attention_bwd,
