@@ -18,14 +18,17 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      T = 20); the backward kernels B3/B4 at the training shapes; the
      dropout kernels B5-B8 at the training shapes (rate 0.1, fixed seed
      words), each backward kernel with the device time of its D pass and
-     main kernel (torch.profiler); B3 and B6 also at T = 1 and 19 (BH = 24),
-     B4 and B8 at T = 1 and 19 with S = 1 and 2 branches (BH0 = 24), where
-     their CTA plans have idle warpgroups and a lone last frame; then an
-     exact probe of B5's and B7's dropout masks: with q = k = 0 and V the
-     identity on one key frame, the output's nonzeros are that frame's keep
-     bits, held bit for bit against the plain twins' mask; of B6's, through
-     dV (key CTAs) and dQ (query CTAs); and of B8's, through dV0, dVb and
-     dQ on both key sets;
+     main kernel (torch.profiler); B1/B3 and B5/B6 also at T = 1 and 19
+     (BH = 24), B2/B4 and B7/B8 at T = 1 and 19 with S = 1 and 2 branches
+     (BH0 = 24), where their CTA plans have idle warpgroups and a lone last
+     frame, each forward's output and log-sum-exp and then the gradients;
+     then an exact probe of B5's and B7's dropout masks (B5/B7 in
+     attention_fwd_sm90.cu, B6/B8 in attention_bwd_sm90.cu): with q = k = 0
+     and V the identity on one key frame, the output's nonzeros are that
+     frame's keep bits, held bit for bit against the plain twins' mask, at
+     the training shapes and at T = 19 (B7 with S = 1 branch, whose q-tile
+     is one frame); of B6's, through dV (key CTAs) and dQ (query CTAs); and
+     of B8's, through dV0, dVb and dQ on both key sets;
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
@@ -210,6 +213,28 @@ def yardsticks(name, tensors, args, L, lse=False):
             'library_ms': library_ms(name, tensors, args, L)}
 
 
+def forward_errors(kernel, plain, tensors, args):
+    """Runs a forward kernel with its log-sum-exp and its plain twin in f32
+    from the same bf16 inputs. Returns (out, lse, record): the record holds
+    max_abs_err, rel_err (relative to the twin's max), lse_max_abs_err,
+    their tolerances and finite (all outputs finite)."""
+    out, lse = kernel(*tensors, *args, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = plain(*(t.float() for t in tensors), *args, return_lse=True)
+    err = (out.float() - ref).abs().max().item()
+    return out, lse, {'max_abs_err': err, 'rel_err': err / ref.abs().max().item(),
+                      'tol': KERNEL_TOL, 'lse_max_abs_err': (lse - ref_lse).abs().max().item(),
+                      'lse_tol': LSE_TOL, 'finite': torch.isfinite(out).all().item()}
+
+
+def check_forward(name, form, errors):
+    check(errors['finite'], f'{name} ({form}): non-finite output')
+    check(errors['rel_err'] <= KERNEL_TOL,
+          f'{name} ({form}): rel err {errors["rel_err"]} > {KERNEL_TOL}')
+    check(errors['lse_max_abs_err'] <= LSE_TOL,
+          f'{name} ({form}): lse err {errors["lse_max_abs_err"]} > {LSE_TOL}')
+
+
 def kernel_checks(ac, log):
     """Phase 2. Returns {kernel name: record of its main-path shape}."""
     gen = torch.Generator(device='cuda').manual_seed(0)
@@ -233,31 +258,22 @@ def kernel_checks(ac, log):
     results = {}
     for name, form, tensors, args in cases:
         kernel, plain = getattr(ac, name), getattr(ac, name.replace('_fwd', '_plain'))
-        out, lse = kernel(*tensors, *args, return_lse=True)
-        torch.cuda.synchronize()
-        ref, ref_lse = plain(*(t.float() for t in tensors), *args, return_lse=True)
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        finite = torch.isfinite(out).all().item()
-        del out, lse, ref, ref_lse
+        out, lse, errors = forward_errors(kernel, plain, tensors, args)
+        del out, lse
         ms = time_ms(lambda: kernel(*tensors, *args))
         plain_ms = time_ms(lambda: plain(*tensors, *args))
         record = {'phase': 'kernel', 'name': name, 'form': form,
-                  'shapes': [list(t.shape) for t in tensors], 'max_abs_err': err,
-                  'rel_err': rel, 'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err,
-                  'lse_tol': LSE_TOL, 'ms': ms, 'plain_ms': plain_ms}
+                  'shapes': [list(t.shape) for t in tensors], **errors, 'ms': ms,
+                  'plain_ms': plain_ms}
         # the first case of each kernel is the serving path's shape
         main = name not in results
         if main:
             record.update(yardsticks(name, tensors, args, L))
         emit(record, log)
-        check(finite, f'{name} ({form}): non-finite output')
-        check(rel <= KERNEL_TOL, f'{name} ({form}): rel err {rel} > {KERNEL_TOL}')
-        check(lse_err <= LSE_TOL, f'{name} ({form}): lse err {lse_err} > {LSE_TOL}')
+        check_forward(name, form, errors)
         if main:
             results[name] = record
-        results[name]['max_abs_err'] = max(results[name]['max_abs_err'], err)
+        results[name]['max_abs_err'] = max(results[name]['max_abs_err'], errors['max_abs_err'])
     results.update(training_kernel_checks(ac, rand, log))
     block_causal_bwd_edges(ac, rand, results, log)
     branch_bwd_edges(ac, rand, results, log)
@@ -291,24 +307,14 @@ def training_kernel_checks(ac, rand, log):
     ]
     for fwd, fwd_plain, inputs, args, bwd, bwd_plain, grads, bwd_args in cases:
         name = fwd.__name__
-        out, lse = fwd(*inputs, *args, return_lse=True)
-        torch.cuda.synchronize()
-        ref, ref_lse = fwd_plain(*(t.float() for t in inputs), *args, return_lse=True)
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        lse_err = (lse - ref_lse).abs().max().item()
-        del ref, ref_lse
+        out, lse, errors = forward_errors(fwd, fwd_plain, inputs, args)
         ms = time_ms(lambda: fwd(*inputs, *args, return_lse=True))
         plain_ms = time_ms(lambda: fwd_plain(*inputs, *args, return_lse=True), n=5)
         record = {'phase': 'kernel', 'name': name, 'form': 'training: with log-sum-exp',
-                  'shapes': [list(t.shape) for t in inputs], 'max_abs_err': err,
-                  'rel_err': rel, 'tol': KERNEL_TOL, 'lse_max_abs_err': lse_err,
-                  'lse_tol': LSE_TOL, 'ms': ms, 'plain_ms': plain_ms,
-                  **yardsticks(name, inputs, args, L, lse=True)}
+                  'shapes': [list(t.shape) for t in inputs], **errors, 'ms': ms,
+                  'plain_ms': plain_ms, **yardsticks(name, inputs, args, L, lse=True)}
         emit(record, log)
-        check(torch.isfinite(out).all().item(), f'{name} (training): non-finite output')
-        check(rel <= KERNEL_TOL, f'{name} (training): rel err {rel} > {KERNEL_TOL}')
-        check(lse_err <= LSE_TOL, f'{name}: lse err {lse_err} > {LSE_TOL}')
+        check_forward(name, 'training', errors)
         if 'dropout' in name:
             results[name] = record
 
@@ -356,20 +362,36 @@ def device_ms_by_kernel(fn, n=5):
             if e.self_device_time_total > 0}
 
 
+def edge_forward(fwd, fwd_plain, tensors, args, form, results, log):
+    """Phase 2: a forward kernel's output and log-sum-exp against its plain
+    twin at a CTA plan's edge case; returns (out, lse) for the backward."""
+    name = fwd.__name__
+    out, lse, errors = forward_errors(fwd, fwd_plain, tensors, args)
+    emit({'phase': 'kernel', 'name': name, 'form': form,
+          'shapes': [list(t.shape) for t in tensors], **errors}, log)
+    check_forward(name, form, errors)
+    results[name]['max_abs_err'] = max(results[name]['max_abs_err'], errors['max_abs_err'])
+    return out, lse
+
+
 def block_causal_bwd_edges(ac, rand, results, log):
-    """Phase 2: B3 and B6 against their plain twins where their CTA plan has
-    its edge cases, at BH = 24: T = 1 (one key and one query CTA a row, each
-    with an idle warpgroup) and T = 19 (the last pair of frames has one)."""
+    """Phase 2: B1/B3 and B5/B6 against their plain twins where their CTA
+    plans have their edge cases, at BH = 24: T = 1 (one CTA a row for B1/B5,
+    one key and one query CTA for B3/B6, each with an idle warpgroup) and
+    T = 19 (the last pair of frames has one); the forward's output and
+    log-sum-exp, then the gradients."""
     BH, L = 24, 64
     for T in (1, 19):
         q, k, v, dout = (rand(BH, T * L, 64) for _ in range(4))
-        for fwd, bwd, plain, args in (
-                (ac.block_causal_attention_fwd, ac.block_causal_attention_bwd,
-                 ac.block_causal_attention_bwd_plain, (L,)),
-                (ac.block_causal_attention_dropout_fwd, ac.block_causal_attention_dropout_bwd,
+        for fwd, fwd_plain, bwd, plain, args in (
+                (ac.block_causal_attention_fwd, ac.block_causal_attention_plain,
+                 ac.block_causal_attention_bwd, ac.block_causal_attention_bwd_plain, (L,)),
+                (ac.block_causal_attention_dropout_fwd, ac.block_causal_attention_dropout_plain,
+                 ac.block_causal_attention_dropout_bwd,
                  ac.block_causal_attention_dropout_bwd_plain, (L, WORDS, RATE))):
             name = bwd.__name__
-            out, lse = fwd(q, k, v, *args, return_lse=True)
+            out, lse = edge_forward(fwd, fwd_plain, (q, k, v), args,
+                                    f'CTA plan edge: T={T}, BH={BH}', results, log)
             grads = bwd(q, k, v, out, dout, lse, *args)
             torch.cuda.synchronize()
             ref = plain(q.float(), k.float(), v.float(), dout.float(), *args)
@@ -385,24 +407,28 @@ def block_causal_bwd_edges(ac, rand, results, log):
 
 
 def branch_bwd_edges(ac, rand, results, log):
-    """Phase 2: B4 and B8 against their plain twins where their CTA plan has
-    its edge cases, at BH0 = 24: T = 1 (no query sees a K0 frame, so dK0
-    and dV0 must be exactly 0, written by key CTAs that stream nothing),
-    T = 19 (the last pair of frames has one), each with S = 1 branch (a key
-    CTA streams one branch row) and S = 2."""
+    """Phase 2: B2/B4 and B7/B8 against their plain twins where their CTA
+    plans have their edge cases, at BH0 = 24: T = 1 (no query sees a K0
+    frame, so dK0 and dV0 must be exactly 0, written by key CTAs that stream
+    nothing), T = 19 (the last pair of frames has one), each with S = 1
+    branch (one consumer warpgroup a forward CTA; a key CTA streams one
+    branch row) and S = 2; the forward's output and log-sum-exp, then the
+    gradients."""
     BH0, L = 24, 64
     for T in (1, 19):
         for S in (1, 2):
             k0, v0 = rand(BH0, T * L, 64), rand(BH0, T * L, 64)
             q, kb, vb, dout = (rand(S * BH0, T * L, 64) for _ in range(4))
-            for fwd, bwd, plain, args in (
-                    (ac.branch_attention_fwd, ac.branch_attention_bwd,
-                     ac.branch_attention_bwd_plain, (L,)),
-                    (ac.branch_attention_dropout_fwd, ac.branch_attention_dropout_bwd,
-                     ac.branch_attention_dropout_bwd_plain, (L, WORDS, RATE))):
+            for fwd, fwd_plain, bwd, plain, args in (
+                    (ac.branch_attention_fwd, ac.branch_attention_plain,
+                     ac.branch_attention_bwd, ac.branch_attention_bwd_plain, (L,)),
+                    (ac.branch_attention_dropout_fwd, ac.branch_attention_dropout_plain,
+                     ac.branch_attention_dropout_bwd, ac.branch_attention_dropout_bwd_plain,
+                     (L, WORDS, RATE))):
                 name = bwd.__name__
                 fwd_args = (L, 0, T) if fwd is ac.branch_attention_fwd else args
-                out, lse = fwd(q, k0, v0, kb, vb, *fwd_args, return_lse=True)
+                out, lse = edge_forward(fwd, fwd_plain, (q, k0, v0, kb, vb), fwd_args,
+                                        f'CTA plan edge: T={T}, S={S}, BH0={BH0}', results, log)
                 grads = bwd(q, k0, v0, kb, vb, out, dout, lse, *args)
                 torch.cuda.synchronize()
                 ref = plain(*(t.float() for t in (q, k0, v0, kb, vb, dout)), *args)
@@ -438,28 +464,21 @@ def block_causal_bwd_mask_probe(ac, mask):
     BH, TL, L = mask.shape[0], mask.shape[1], 64
     T = TL // L
     zeros = lambda: torch.zeros(BH, TL, L, dtype=torch.bfloat16, device='cuda')  # noqa: E731
-    eye = torch.eye(L, dtype=torch.bfloat16, device='cuda')
     frames = torch.arange(TL, device='cuda') // L
-
-    def frame_identity(f):
-        x = zeros()
-        x[:, f * L:(f + 1) * L] = eye
-        return x
-
     q = zeros()
     out, lse = ac.block_causal_attention_dropout_fwd(q, q, q, L, WORDS, RATE, return_lse=True)
     bad_key = 0
     for t in range(T):
-        _, _, dv = ac.block_causal_attention_dropout_bwd(q, q, q, out, frame_identity(t), lse, L,
-                                                         WORDS, RATE)
+        _, _, dv = ac.block_causal_attention_dropout_bwd(q, q, q, out, frame_identity(BH, TL, t),
+                                                         lse, L, WORDS, RATE)
         expected = mask[:, t * L:(t + 1) * L].transpose(1, 2) & (frames <= t)[None, :, None]
         bad_key += ((dv != 0) != expected).sum().item()
     column0 = zeros()
     column0[..., 0] = 1
     bad_query = 0
     for f in range(T):
-        dq, _, _ = ac.block_causal_attention_dropout_bwd(q, frame_identity(f), column0, q, column0,
-                                                         lse, L, WORDS, RATE)
+        dq, _, _ = ac.block_causal_attention_dropout_bwd(q, frame_identity(BH, TL, f), column0, q,
+                                                         column0, lse, L, WORDS, RATE)
         expected = mask[:, :, f * L:(f + 1) * L] & (frames >= f)[None, :, None]
         bad_query += ((dq != 0) != expected).sum().item()
     return {'key_ctas_dv': bad_key, 'query_ctas_dq': bad_query}
@@ -522,75 +541,108 @@ def branch_bwd_mask_probe(ac, mask, own, bh0):
     return bad
 
 
-def dropout_probes(ac, log):
-    """Phase 2: the exact dropout masks of B5 and B7 at the training shapes.
-    With q = k = 0 every visited weight is the same, so with V the identity
-    on one key frame (0 elsewhere) output column j is nonzero iff that
-    frame's key j was kept: the output's nonzeros are the kernel's keep bits
-    for that frame. Held bit for bit against the plain twins' mask
-    (hash_keep over bc_weight_index / branch_weight_indices): B5 over every
-    key frame, B7 over every K0 frame and (vb the identity on every frame)
-    the own frames; B6 against B5's mask (block_causal_bwd_mask_probe) and
-    B8 against B7's (branch_bwd_mask_probe)."""
+def twin_mask(rows, index):
+    """The plain twins' bool keep mask of `rows` rows, index(ids) giving the
+    weight indices of rows ids, in chunks of 16 rows."""
     from viewformer_tpu_torch.ops.dropout import hash_keep
 
-    BH, T, L = TRAIN_B * 12, 20, 64
-    TL, G = T * L, 2 * BH
-    zeros = lambda rows: torch.zeros(rows, TL, L, dtype=torch.bfloat16, device='cuda')  # noqa: E731
-    eye = torch.eye(L, dtype=torch.bfloat16, device='cuda')
+    ids = torch.arange(rows, device='cuda')
+    return torch.cat([hash_keep(WORDS, index(ids[i:i + 16]), RATE) != 0
+                      for i in range(0, rows, 16)])
+
+
+def frame_identity(rows, TL, f):
+    """[rows, TL, 64] bf16: the identity on the rows of frame f, 0 elsewhere."""
+    x = torch.zeros(rows, TL, 64, dtype=torch.bfloat16, device='cuda')
+    x[:, f * 64:(f + 1) * 64] = torch.eye(64, dtype=torch.bfloat16, device='cuda')
+    return x
+
+
+def block_causal_fwd_probe(ac, BH, T):
+    """B5's keep bits at [BH, T*64, 64], bit for bit against the twins' mask
+    over bc_weight_index, through V the identity on each key frame in turn.
+    Returns (mask [BH, TL, TL], mismatched bits)."""
+    TL, L = T * 64, 64
+    zeros = torch.zeros(BH, TL, L, dtype=torch.bfloat16, device='cuda')
     frames = torch.arange(TL, device='cuda') // L
-
-    def frame_identity(rows, f):
-        x = zeros(rows)
-        x[:, f * L:(f + 1) * L] = eye
-        return x
-
-    def twin_mask(rows, index):  # bool keep mask of rows, in chunks of 16 rows
-        ids = torch.arange(rows, device='cuda')
-        return torch.cat([hash_keep(WORDS, index(ids[i:i + 16]), RATE) != 0
-                          for i in range(0, rows, 16)])
-
-    mismatches, kept = {}, {}
-    mask = twin_mask(BH, lambda ids: ac.bc_weight_index(ids, TL))  # [BH, TL, TL]
+    mask = twin_mask(BH, lambda ids: ac.bc_weight_index(ids, TL))
     bad = 0
     for f in range(T):
-        out = ac.block_causal_attention_dropout_fwd(zeros(BH), zeros(BH), frame_identity(BH, f),
-                                                    L, WORDS, RATE)
+        out = ac.block_causal_attention_dropout_fwd(zeros, zeros, frame_identity(BH, TL, f), L,
+                                                    WORDS, RATE)
         expected = mask[:, :, f * L:(f + 1) * L] & (frames >= f)[None, :, None]
         bad += ((out != 0) != expected).sum().item()
+    return mask, bad
+
+
+def branch_fwd_probe(ac, BH0, T, S):
+    """B7's keep bits at G = S*BH0 branch rows of T*64 queries, bit for bit
+    against the twins' mask over branch_weight_indices: on the K0 keys
+    through V0 the identity on each K0 frame in turn, on the own keys
+    through vb the identity on every frame. Returns (K0 mask [G, TL, TL],
+    own mask [G, T, 64, 64], mismatched K0 bits, mismatched own bits)."""
+    TL, L, G = T * 64, 64, S * BH0
+    zeros = lambda rows: torch.zeros(rows, TL, L, dtype=torch.bfloat16, device='cuda')  # noqa: E731
+    frames = torch.arange(TL, device='cuda') // L
+    mask = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[0])
+    bad = 0
+    for f in range(T):
+        out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH0), frame_identity(BH0, TL, f),
+                                              zeros(G), zeros(G), L, WORDS, RATE)
+        expected = mask[:, :, f * L:(f + 1) * L] & (frames > f)[None, :, None]
+        bad += ((out != 0) != expected).sum().item()
+    own = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[1])
+    eye = torch.eye(L, dtype=torch.bfloat16, device='cuda')
+    out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH0), zeros(BH0), zeros(G),
+                                          eye.repeat(T, 1).expand(G, TL, L).contiguous(),
+                                          L, WORDS, RATE)
+    bad_own = ((out.reshape(G, T, L, L) != 0) != own).sum().item()
+    return mask, own, bad, bad_own
+
+
+def dropout_probes(ac, log):
+    """Phase 2: the exact dropout masks of B5-B8. With q = k = 0 every
+    visited weight is the same, so with V the identity on one key frame (0
+    elsewhere) output column j is nonzero iff that frame's key j was kept:
+    the output's nonzeros are the kernel's keep bits for that frame. Held
+    bit for bit against the plain twins' mask (hash_keep over
+    bc_weight_index / branch_weight_indices): B5 over every key frame and B7
+    over every K0 frame and the own frames, at the training shapes and at
+    T = 19 (B7 with S = 1 branch at BH0 = 24: one consumer warpgroup a CTA
+    and the q-tile qb = 64, so the own frames' column offset is 0 and the
+    row stride TL + 64); B6 against B5's mask (block_causal_bwd_mask_probe)
+    and B8 against B7's (branch_bwd_mask_probe) at the training shapes."""
+    BH, T = TRAIN_B * 12, 20
+    TL = T * 64
+    mismatches, kept = {}, {}
+    mask, bad = block_causal_fwd_probe(ac, BH, T)
     mismatches['block_causal_attention_dropout_fwd'] = bad
     kept['block_causal_attention_dropout_fwd'] = mask.float().mean().item()
     bwd_bad = block_causal_bwd_mask_probe(ac, mask)
     emit({'phase': 'dropout_mask_probe_bwd', 'name': 'block_causal_attention_dropout_bwd',
-          'rate': RATE, 'seed_words': WORDS, 'shape': [BH, TL, L],
+          'rate': RATE, 'seed_words': WORDS, 'shape': [BH, TL, 64],
           'mismatched_bits': bwd_bad}, log)
     mismatches['block_causal_attention_dropout_bwd'] = sum(bwd_bad.values())
     del mask
+    mismatches['block_causal_attention_dropout_fwd T=19, BH=24'] = \
+        block_causal_fwd_probe(ac, 24, 19)[1]
 
-    mask = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[0])  # [G, TL, TL]
-    bad = 0
-    for f in range(T):
-        out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH), frame_identity(BH, f),
-                                              zeros(G), zeros(G), L, WORDS, RATE)
-        expected = mask[:, :, f * L:(f + 1) * L] & (frames > f)[None, :, None]
-        bad += ((out != 0) != expected).sum().item()
-    kept['branch_attention_dropout_fwd'] = mask.float().mean().item()
-    own = twin_mask(G, lambda ids: ac.branch_weight_indices(ids, TL, L)[1])  # [G, T, L, L]
-    out = ac.branch_attention_dropout_fwd(zeros(G), zeros(BH), zeros(BH), zeros(G),
-                                          eye.repeat(T, 1).expand(G, TL, L).contiguous(),
-                                          L, WORDS, RATE)
-    bad_own = ((out.reshape(G, T, L, L) != 0) != own).sum().item()
+    mask, own, bad, bad_own = branch_fwd_probe(ac, BH, T, 2)
     mismatches['branch_attention_dropout_fwd'] = bad + bad_own
-    del out
+    kept['branch_attention_dropout_fwd'] = mask.float().mean().item()
     bwd_bad = branch_bwd_mask_probe(ac, mask, own, BH)
     emit({'phase': 'dropout_mask_probe_bwd', 'name': 'branch_attention_dropout_bwd',
-          'rate': RATE, 'seed_words': WORDS, 'shape': [G, TL, L], 'bh0': BH,
+          'rate': RATE, 'seed_words': WORDS, 'shape': [2 * BH, TL, 64], 'bh0': BH,
           'mismatched_bits': bwd_bad}, log)
     mismatches['branch_attention_dropout_bwd'] = sum(bwd_bad.values())
     del mask, own
+    _, _, edge_bad, edge_bad_own = branch_fwd_probe(ac, 24, 19, 1)
+    mismatches['branch_attention_dropout_fwd T=19, S=1, BH0=24'] = edge_bad + edge_bad_own
     emit({'phase': 'dropout_mask_probe', 'rate': RATE, 'seed_words': WORDS,
-          'shapes': {'block_causal': [BH, TL, L], 'branch': [G, TL, L]},
-          'mismatched_bits': mismatches, 'branch_own_frame_mismatched_bits': bad_own,
+          'shapes': {'block_causal': [BH, TL, 64], 'branch': [2 * BH, TL, 64],
+                     'block_causal edge': [24, 19 * 64, 64], 'branch edge': [24, 19 * 64, 64]},
+          'mismatched_bits': mismatches,
+          'branch_own_frame_mismatched_bits': {'training': bad_own, 'edge': edge_bad_own},
           'kept_share_of_all_weights': kept}, log)
     for name, count in mismatches.items():
         check(count == 0, f'{name}: {count} dropout mask bits differ from the plain twin')
@@ -894,9 +946,9 @@ def main():
         'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':69'),
         'block_causal_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':149'),
         'branch_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':182'),
-        'block_causal_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':331'),
+        'block_causal_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', ':331'),
         'block_causal_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':347'),
-        'branch_attention_dropout_fwd': (csrc + 'branching_attention.cu', ':381'),
+        'branch_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', ':381'),
         'branch_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':414'),
     }
     summary = {'kernels': [

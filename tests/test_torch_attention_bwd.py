@@ -2,8 +2,9 @@
 package: the plain twins of kernels B3/B4 against the Pallas backward kernels
 in interpret mode and against jax.vjp of the dense attention, the autograd
 Functions by gradcheck, the log-sum-exp of the forward, attention dropout's
-need for seeds, the branch kernels' shape gate, and the ctypes binding of
-every kernel's C entry point against its declaration in csrc/."""
+need for seeds, the branch kernels' shape gate, the sources build()
+compiles against the .cu files of csrc/, and the ctypes binding of every
+kernel's C entry point against its declaration in csrc/."""
 import ctypes
 import glob
 import os
@@ -173,25 +174,33 @@ def test_backward_wrappers_refuse_other_devices():
 
 
 def test_branch_shape_gate():
-    """B4 and B8 run a 1-D grid, so their shape gate lets G + BH0 > 65535
-    pass; B7's 2-D grid still refuses it. The gate on its own: on a meta
-    tensor the wrappers raise 'no kernel' before they reach it."""
+    """B4, B7 and B8 run a 1-D grid, so their shape gate lets G + BH0 > 65535
+    pass. The gate on its own: on a meta tensor the wrappers raise 'no
+    kernel' before they reach it."""
     G, BH0 = 3 * 16384, 16384  # G + BH0 = 65536
     q = torch.empty(G, L, 64, dtype=torch.bfloat16, device='meta')
     k0 = torch.empty(BH0, L, 64, dtype=torch.bfloat16, device='meta')
     for name in ('branch_attention_bwd', 'branch_attention_dropout_bwd'):
         assert ac._check_one_shot_branch(name, q, k0, k0, q, q, L, q, q) == (G, BH0, L)
+    assert ac._check_one_shot_branch('branch_attention_dropout_fwd', q, k0, k0, q, q, L) == (
+        G, BH0, L)
     with pytest.raises(ValueError, match='branch_attention_dropout_fwd: shapes'):
-        ac._check_one_shot_branch('branch_attention_dropout_fwd', q, k0, k0, q, q, L,
-                                  max_rows=ac._B7_MAX_ROWS)
-    q7, k7 = q[:2 * (BH0 - 1)], k0[:BH0 - 1]  # G + BH0 = 49149: within B7's grid
-    assert ac._check_one_shot_branch('branch_attention_dropout_fwd', q7, k7, k7, q7, q7, L,
-                                     max_rows=ac._B7_MAX_ROWS) == (2 * (BH0 - 1), BH0 - 1, L)
+        ac._check_one_shot_branch('branch_attention_dropout_fwd', q, k0[:BH0 - 1],
+                                  k0[:BH0 - 1], q, q, L)  # BH0 does not divide G
     lse = torch.empty(G, L, device='meta')
     for fn, extra in ((ac.branch_attention_bwd, ()), (ac.branch_attention_dropout_bwd,
                                                        ((1, 2), 0.1))):
         with pytest.raises(ValueError, match='no kernel'):
             fn(q, k0, k0, q, q, q, q, lse, L, *extra)
+    with pytest.raises(ValueError, match='no kernel'):
+        ac.branch_attention_dropout_fwd(q, k0, k0, q, q, L, (1, 2), 0.1)
+
+
+def test_every_csrc_source_is_built():
+    """The .cu files of csrc/ are exactly the sources build() compiles, so a
+    source that is deleted, or added without being built, is caught here."""
+    assert sorted(os.path.basename(p) for p in glob.glob(os.path.join(ac._CSRC_DIR, '*.cu'))) \
+        == sorted(ac._SOURCES)
 
 
 def _c_entry_points():

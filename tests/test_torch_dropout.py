@@ -23,8 +23,9 @@ RATE = 0.1
 SEEDS = np.asarray([[123456789, 987654321]], np.uint32)
 WORDS = tuple(int(w) for w in SEEDS[0])
 # (T, L, dh): the Pallas q-tile qb = _pick_q_block(T*L, L) is T*L (one tile),
-# 320 < T*L (two tiles; the training shape has qb 320 < 1280) and L
-SHAPES = [(3, 16, 32), (20, 32, 32), (11, 64, 32)]
+# 320 < T*L (two tiles; the training shape has qb 320 < 1280) and L; T = 1,
+# where B7 attends no K0 frame and B5's pair of query frames has one
+SHAPES = [(3, 16, 32), (20, 32, 32), (11, 64, 32), (1, 64, 32)]
 BH, S = 2, 2
 
 

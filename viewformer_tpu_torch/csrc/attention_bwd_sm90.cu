@@ -9,7 +9,7 @@
 // B6 block_causal_attention_dropout_bwd replaces _block_causal_do_bwd_kernel3
 //    (the backward of B5): the same code with the template flag kDrop set,
 //    which regenerates each visited weight's keep factor from the seed words
-//    and the weight's global index, as B5 does (attention_tile.cuh; B5's
+//    and the weight's global index with B5's hash (attention_tile.cuh; B5's
 //    index (bh*TL + query)*TL + key in uint32), so nothing but the seeds is
 //    saved.
 // B4 branch_attention_bwd replaces _branch_bwd_kernel3 together with the
@@ -115,8 +115,14 @@
 #include "attention_tile.cuh"
 #include "sm90.cuh"
 
+typedef __nv_bfloat16 bf16;
 using namespace sm90;
 using tile::Dropout;
+using tile::Keep;
+using tile::keep_at;
+using tile::keep_factors;
+using tile::kPrime1;
+using tile::make_keep;
 
 namespace {
 
@@ -252,49 +258,6 @@ __device__ __forceinline__ void wait_products(float (&x)[32], float (&y)[32]) {
   wgmma_wait_all();
   fence_regs(x);
   fence_regs(y);
-}
-
-// tile::keep_factor taken apart, so that the 32 keep tests a thread makes a
-// frame cost few integer operations and run while the frame's first
-// products are in flight. The hash's first step, h = idx * kPrime1 + s0, is
-// formed as a frame base plus steps along the fragment's rows and columns;
-// the test u >= rate with u = (h' >> 8) / 2^24 (exact in f32) is
-// h' >= ceil(rate * 2^24) << 8 on the final hash h', in integers.
-constexpr unsigned kPrime1 = 2654435761u;
-
-struct Keep {
-  unsigned s0, s1;
-  unsigned threshold;  // ceil(rate * 2^24) << 8, or 0 when no weight is kept
-  float scale;         // the factor of a kept weight (0 when none is)
-  unsigned stride1;    // the row stride of the weight index, times kPrime1
-};
-
-__device__ __forceinline__ Keep make_keep(const Dropout& d, unsigned stride) {
-  const unsigned n = (unsigned)ceilf(d.rate * 16777216.f);  // rate * 2^24 is exact
-  const bool some = n < (1u << 24);
-  return Keep{d.s0, d.s1, some ? n << 8 : 0u, some ? d.scale : 0.f, stride * kPrime1};
-}
-
-// The keep factor (scale or 0) of element i of the thread's accumulator
-// fragment, element i lying at column 8(i>>2) + (i&1) and row 8((i>>1)&1)
-// from the thread's first; h0 = its first element's index * kPrime1 + s0;
-// col1 and row1 = the index steps of a column and a row, times kPrime1.
-__device__ __forceinline__ float keep_at(const Keep& k, unsigned h0, unsigned col1,
-                                         unsigned row1, int i) {
-  unsigned h =
-      h0 + (unsigned)(8 * (i >> 2) + (i & 1)) * col1 + (unsigned)(8 * ((i >> 1) & 1)) * row1;
-  h ^= h >> 15;
-  h *= 2246822519u;
-  h ^= (h >> 13) ^ k.s1;
-  h *= 3266489917u;
-  h ^= h >> 16;
-  return h >= k.threshold ? k.scale : 0.f;
-}
-
-__device__ __forceinline__ void keep_factors(const Keep& k, unsigned h0, unsigned col1,
-                                             unsigned row1, float (&f)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) f[i] = keep_at(k, h0, col1, row1, i);
 }
 
 // acc += A B with A a packed [64, 64] operand in registers and B a [64, 64]

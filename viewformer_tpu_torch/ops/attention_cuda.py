@@ -14,22 +14,23 @@ csrc/ source named beside it:
                               branches of _fb_bwd (kernel B4;
                               attention_bwd_sm90.cu)
   block_causal_attention_dropout_fwd  replaces _block_causal_do_kernel3 (B5;
-                                      branching_attention.cu)
+                                      attention_fwd_sm90.cu)
   block_causal_attention_dropout_bwd  replaces _block_causal_do_bwd_kernel3
                                       (B6; attention_bwd_sm90.cu)
   branch_attention_dropout_fwd        replaces _branch_do_kernel3 (B7;
-                                      branching_attention.cu)
+                                      attention_fwd_sm90.cu)
   branch_attention_dropout_bwd        replaces _branch_do_bwd_kernel3 and the
                                       sum over branches of _fbd_bwd (B8;
                                       attention_bwd_sm90.cu)
 
-B1 and B2 (attention_fwd_sm90.cu) and the four backward kernels
-(attention_bwd_sm90.cu, one template) are built for Hopper: a producer warp
-feeds 64 x 64 bf16 frame tiles by TMA through an mbarrier ring to consumer
-warpgroups that multiply with wgmma and keep the softmax (and its gradient)
-on their accumulator registers. The tensor cores bound them at the training
-shapes; each source's note says what its design does about that. B5 and B7
-(branching_attention.cu) still run WMMA tiles through shared memory.
+All eight are built for Hopper, as two templates: the forward kernels B1,
+B2, B5 and B7 (attention_fwd_sm90.cu) and the backward kernels B3, B4, B6
+and B8 (attention_bwd_sm90.cu). A producer warp feeds 64 x 64 bf16 frame
+tiles by TMA through an mbarrier ring to consumer warpgroups that multiply
+with wgmma and keep the softmax (and its gradient) on their accumulator
+registers. The tensor cores bound B1-B4 at the training shapes, and the
+dropout hash adds integer work to B5-B8; each source's note says what its
+design does about that.
 
 B5-B8 are B1-B4 with inverted dropout on the softmax weights, the mask
 hashed from two uint32 seed words and each weight's global index
@@ -66,7 +67,7 @@ _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
 # each source is one shared library; the headers are compiled into them
-_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu', 'branching_attention.cu')
+_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
 # weights a plain dropout twin holds at a time (f32 scores, int64 indices):
@@ -513,20 +514,15 @@ def _dropout_args(name, seeds, rate):
     return s0, s1, float(np.float32(rate)), float(np.float32(1.0 / (1.0 - rate)))
 
 
-# B7's 2-D grid (query frames, G) bounds its rows; B4/B8 run a 1-D grid
-_B7_MAX_ROWS = 65535
-
-
-def _check_one_shot_branch(name, q, k0, v0, kb, vb, L, *more, max_rows=None):
-    """The shape gate of the one-shot branch kernels: q, kb, vb and `more`
-    [G, T*L, dh], k0/v0 [BH0, T*L, dh] with BH0 dividing G, fewer than 2^31
-    rows of G (the kernels' int32 row offsets) and, where the kernel's grid
-    needs it (B7: max_rows), G + BH0 <= max_rows. Returns (G, BH0, T*L)."""
+def _check_one_shot_branch(name, q, k0, v0, kb, vb, L, *more):
+    """The shape gate of the one-shot branch kernels B4, B7 and B8 (each a
+    1-D grid): q, kb, vb and `more` [G, T*L, dh], k0/v0 [BH0, T*L, dh] with
+    BH0 dividing G and fewer than 2^31 rows of G (the kernels' int32 row
+    offsets). Returns (G, BH0, T*L)."""
     G, TL, _ = q.shape
     BH0 = k0.shape[0]
     if (any(t.shape != q.shape for t in (kb, vb) + more) or v0.shape != k0.shape
-            or k0.shape[1] != TL or TL % L or G % BH0 or G * TL >= 1 << 31
-            or (max_rows is not None and G + BH0 > max_rows)):
+            or k0.shape[1] != TL or TL % L or G % BH0 or G * TL >= 1 << 31):
         raise ValueError(f'{name}: shapes q {tuple(q.shape)}, k0 {tuple(k0.shape)}, '
                          f'v0 {tuple(v0.shape)}, kb {tuple(kb.shape)}, vb {tuple(vb.shape)}, '
                          f'others {[tuple(t.shape) for t in more]}')
@@ -700,7 +696,7 @@ def branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, seeds, rate, return_lse=F
     if not _on_device(name, q):
         return branch_attention_dropout_plain(q, k0, v0, kb, vb, L, seeds, rate, return_lse)
     _check_operands(name, L, q, k0, v0, kb, vb)
-    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L, max_rows=_B7_MAX_ROWS)
+    G, BH0, TL = _check_one_shot_branch(name, q, k0, v0, kb, vb, L)
     drop = _dropout_args(name, seeds, rate)
     out = torch.empty_like(q)
     lse = torch.empty((G, TL), dtype=torch.float32, device=q.device) if return_lse else None
