@@ -46,7 +46,19 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      dropout seeds; checks the loss and gradients, then that 3 steps move
      the parameters the same way: at dropout 0.0 with 12 layers, and at
      dropout 0.1 with 2 (the CPU's plain dropout twins hash every attention
-     weight in int64, ~15x the time of the plain attention).
+     weight in int64, ~15x the time of the plain attention);
+  7. the training entry point (train_loop): a token dataset written through
+     the port's writer into a temporary directory (4 train shards of 8
+     environments x 100 frames, one test shard of 8 x 160; 8x8 codes from
+     1024, seeded cameras) and a random-weight VQGANConfig() codebook saved
+     as a job dir; train_transformer(MIGTConfig(), ...) for 6 steps in 2
+     epochs at B=64, S=20 with a save every 2 steps, validation with the
+     codebook's PSNR; the same run stopped before its 5th step and resumed
+     from its step-3 checkpoint. Checks finite losses, the exact launch
+     counts of every train step and eval step, val/psnr, and the resumed
+     losses against the uninterrupted run's; prints the loop's step time
+     against phase 5's bare step, the reader's host time a batch, how long
+     save() blocks the loop and the commit lag, and the peak memory.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -55,8 +67,10 @@ import json
 import os
 import re
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -102,6 +116,13 @@ LSE_TOL = 1e-3
 TRAIN_LOSS_TOL = 5e-2
 GRAD_COSINE = 0.99
 UPDATE_COSINE = 0.95
+# Phase 7: 6 steps in 2 epochs, a save every 2 steps (at 2 and 5, and the
+# epoch ends 3 and 6); the second run stops before step 5 and resumes from
+# step 3. The resumed steps run the same kernels on the same inputs, so
+# their losses agree to f32 rounding; 1e-6 relative allows for a library
+# kernel whose reduction order varies between runs.
+LOOP_STEPS, LOOP_EPOCHS, LOOP_SAVE_EVERY, LOOP_KILL_AT = 6, 2, 2, 4
+RESUME_TOL = 1e-6
 
 
 def compared(n_layer):
@@ -894,6 +915,250 @@ def train_card_vs_cpu(config, log):
               f'{name}: update cosine {update_cosine[name]} < {UPDATE_COSINE}')
 
 
+def write_token_dataset(path, seed=0):
+    """Phase 7's dataset, through the port's writer: 4 train shards of 8
+    environments x 100 frames (160 sequences of S frames, 2 batches an
+    epoch) and one test shard of 8 x 160 frames (one batch); 8x8 codes from
+    1024 and 7-d cameras with unit quaternions, from a numpy seed."""
+    from viewformer_tpu_torch.data.dataset import (get_shard_filename, write_dataset_info,
+                                                   write_shard)
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(path)
+    shards = {'train': (4, 100), 'test': (1, 160)}
+    write_dataset_info(os.path.join(path, 'info.json'), {
+        'name': 'chip', 'features': ['cameras', 'codes'], 'token_image_size': 8,
+        'frame_size': SIZE, 'splits': sorted(shards),
+        **{f'{split}_size': n for split, (n, _) in shards.items()}})
+    for split, (n, frames) in shards.items():
+        for shard in range(1, n + 1):
+            environments = []
+            for _ in range(8):
+                quaternion = rng.randn(frames, 4)
+                quaternion /= np.linalg.norm(quaternion, axis=-1, keepdims=True)
+                environments.append({
+                    'cameras': np.concatenate([rng.randn(frames, 3), quaternion], -1),
+                    'codes': rng.randint(0, 1024, (frames, 8, 8))})
+            base = get_shard_filename(os.path.join(path, 'chip'), split, shard, n)
+            write_shard(base[:-len('.tfrecord')], environments, ['cameras', 'codes'])
+    return path
+
+
+def save_codebook(path):
+    """A random-weight VQGANConfig() codebook (seed 0) saved as a port job
+    dir, for the loop's validation to load_model and decode_code."""
+    from viewformer_tpu_torch.config import VQGANConfig
+    from viewformer_tpu_torch.models import AutoModel
+    from viewformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    config = VQGANConfig()
+    model = AutoModel.from_config(config, torch.float32, 'cpu', torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(path, config)
+    mgr.save(0, {'model': model.state_dict()})
+    mgr.close()
+    return path
+
+
+def reader_ms_per_batch(path, config, n=4):
+    """Host ms a batch of load_token_dataset (the train split, the loop's
+    transform), over n batches made back to back by its prefetch thread."""
+    import functools
+
+    from viewformer_tpu_torch.data.pipeline import load_token_dataset
+    from viewformer_tpu_torch.train.transformer import process_batch
+
+    loader = load_token_dataset(path, TRAIN_B, S, 8, split='train', repeat=-1, seed=42,
+                                transform=functools.partial(process_batch,
+                                                            augment=config.augment_poses))
+    t0 = time.perf_counter()
+    try:
+        for i, (poses, tokens) in enumerate(loader, 1):
+            check(poses.shape == (TRAIN_B, S, 7) and tokens.shape == (TRAIN_B, S, 8, 8),
+                  f'reader batch shapes {poses.shape}, {tokens.shape}')
+            if i == n:
+                break
+    finally:
+        loader.close()
+    return 1000 * (time.perf_counter() - t0) / n
+
+
+class StopBeforeStep(Exception):
+    """Raised by phase 7's instrumented train step to stop a run."""
+
+
+def instrument_loop(ac, ttt, ckpt_mod, stop_at=None):
+    """Wraps the train and eval steps that train_transformer builds and the
+    CheckpointManager's save and commit: each train and eval step records
+    its launches of every kernel and a CUDA event behind its work (no sync:
+    the loop syncs only where it reads a metric), each save how long it
+    blocked the caller and the device memory then allocated, each commit
+    when it ended. With stop_at, the
+    train step raises StopBeforeStep when called at that update count.
+    Returns (record, restore)."""
+    record = {'train': [], 'eval': [], 'saves': {}, 'commits': {}}
+    make_train, make_eval = ttt.make_transformer_train_step, ttt.make_transformer_eval_step
+    save, commit = ckpt_mod.CheckpointManager.save, ckpt_mod.CheckpointManager._commit
+
+    def counted(kind, fn):
+        def run(state, *args):
+            if kind == 'train' and state.step == stop_at:
+                raise StopBeforeStep
+            before = {f.__name__: f.launches for f in ac.KERNELS}
+            out = fn(state, *args)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            record[kind].append({'end': end, 'launches': {
+                f.__name__: f.launches - before[f.__name__] for f in ac.KERNELS}})
+            return out
+        return run
+
+    def timed_save(self, step, *args, **kwargs):
+        t0 = time.perf_counter()
+        save(self, step, *args, **kwargs)
+        record['saves'][step] = {'end': time.perf_counter(), 'blocked_s': time.perf_counter() - t0,
+                                 'allocated_gb': torch.cuda.memory_allocated() / 1e9}
+
+    def timed_commit(self, step):
+        commit(self, step)
+        record['commits'][step] = time.perf_counter()
+
+    ttt.make_transformer_train_step = lambda *a: counted('train', make_train(*a))
+    ttt.make_transformer_eval_step = lambda *a: counted('eval', make_eval(*a))
+    ckpt_mod.CheckpointManager.save = timed_save
+    ckpt_mod.CheckpointManager._commit = timed_commit
+
+    def restore():
+        ttt.make_transformer_train_step, ttt.make_transformer_eval_step = make_train, make_eval
+        ckpt_mod.CheckpointManager.save, ckpt_mod.CheckpointManager._commit = save, commit
+    return record, restore
+
+
+def read_metrics(job_dir):
+    """{(step, 'train' or 'val'): record} of a job's metrics.jsonl, the last
+    record of a step winning (a resumed run logs its steps again)."""
+    out = {}
+    with open(os.path.join(job_dir, 'metrics.jsonl')) as f:
+        for line in f:
+            record = json.loads(line)
+            out[record['step'], 'val' if 'val/loss' in record else 'train'] = record
+    return out
+
+
+def train_loop(ac, config, log, card):
+    """Phase 7. Returns the launch counts of the uninterrupted run."""
+    from viewformer_tpu_torch.train import checkpoint as ckpt_mod
+    from viewformer_tpu_torch.train import transformer as ttt
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        t0 = time.perf_counter()
+        data = write_token_dataset(os.path.join(tmp, 'data'))
+        codebook = save_codebook(os.path.join(tmp, 'codebook'))
+        setup_s = time.perf_counter() - t0
+        reader_ms = reader_ms_per_batch(data, config)
+        kwargs = dict(codebook_path=codebook, total_steps=LOOP_STEPS, epochs=LOOP_EPOCHS,
+                      checkpoint_every=LOOP_SAVE_EVERY, log_every=1, progress=False)
+
+        # run A, uninterrupted: the main path of this phase
+        record, restore = instrument_loop(ac, ttt, ckpt_mod)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ac.reset_launch_counts()
+            t0 = time.perf_counter()
+            model, state = ttt.train_transformer(config, data, os.path.join(tmp, 'a'), **kwargs)
+            run_s = time.perf_counter() - t0
+            launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        finally:
+            restore()
+        check(state.step == LOOP_STEPS, f'run A ended at step {state.step}')
+        del model, state
+        torch.cuda.empty_cache()
+
+        # run B: stopped before step LOOP_KILL_AT + 1, then resumed
+        stopped, restore = instrument_loop(ac, ttt, ckpt_mod, stop_at=LOOP_KILL_AT)
+        try:
+            ttt.train_transformer(config, data, os.path.join(tmp, 'b'), **kwargs)
+            check(False, 'run B was not stopped')
+        except StopBeforeStep:
+            pass
+        finally:
+            restore()
+        resumed, restore = instrument_loop(ac, ttt, ckpt_mod)
+        try:
+            model, state = ttt.train_transformer(config, data, os.path.join(tmp, 'b'), **kwargs)
+        finally:
+            restore()
+        check(state.step == LOOP_STEPS, f'resumed run B ended at step {state.step}')
+        del model, state
+        torch.cuda.empty_cache()
+        metrics_a = read_metrics(os.path.join(tmp, 'a'))
+        metrics_b = read_metrics(os.path.join(tmp, 'b'))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_train = {fn.__name__: 0 for fn in ac.KERNELS}
+    per_train.update(block_causal_attention_dropout_fwd=2 * config.n_layer,
+                     branch_attention_dropout_fwd=2 * config.n_layer,
+                     block_causal_attention_dropout_bwd=config.n_layer - 1,
+                     branch_attention_dropout_bwd=config.n_layer)
+    # an eval step is one forward without dropout: B1 and B2 once a layer
+    per_eval = {fn.__name__: 0 for fn in ac.KERNELS}
+    per_eval.update(block_causal_attention_fwd=config.n_layer,
+                    branch_attention_fwd=config.n_layer)
+    train_ends = [r['end'] for r in record['train']]
+    step_gaps = [a.elapsed_time(b) / 1000 for a, b in zip(train_ends, train_ends[1:])]
+    bare = next(r for r in log if r['phase'] == 'train' and r['dropout'] == config.dropout)
+    losses = [metrics_a[step, 'train']['train/loss'] for step in range(1, LOOP_STEPS + 1)]
+    resumed_steps = range(LOOP_STEPS - len(resumed['train']) + 1, LOOP_STEPS + 1)
+    resume_rel = {step: abs(metrics_b[step, 'train']['train/loss']
+                            - metrics_a[step, 'train']['train/loss'])
+                  / abs(metrics_a[step, 'train']['train/loss']) for step in resumed_steps}
+    commit_lag = {step: record['commits'][step] - save['end']
+                  for step, save in record['saves'].items() if step in record['commits']}
+    emit({'phase': 'train_loop', 'card': card, 'dropout': config.dropout, 'batch': TRAIN_B,
+          'frames_per_sequence': S, 'steps': LOOP_STEPS, 'epochs': LOOP_EPOCHS,
+          'checkpoint_every': LOOP_SAVE_EVERY, 'setup_s': setup_s, 'run_s': run_s,
+          'reader_ms_per_batch': reader_ms,
+          'loop_step_gaps_s': step_gaps, 'loop_step_s_median': statistics.median(step_gaps),
+          'bare_step_s_median': bare['step_s_median'],
+          'loop_over_bare': statistics.median(step_gaps) / bare['step_s_median'],
+          'save_blocked_s': {s: v['blocked_s'] for s, v in record['saves'].items()},
+          'commit_lag_s': commit_lag,
+          'allocated_gb_after_save': {s: v['allocated_gb'] for s, v in record['saves'].items()},
+          'max_memory_allocated_gb': peak_gb,
+          'bare_max_memory_allocated_gb': bare['max_memory_allocated_gb'],
+          'losses': losses, 'val': {k: v for k, v in metrics_a[LOOP_STEPS, 'val'].items()},
+          'stopped_after_step': len(stopped['train']),
+          'resumed_losses': [metrics_b[s, 'train']['train/loss'] for s in resumed_steps],
+          'resume_loss_rel_diff': resume_rel, 'resume_tol': RESUME_TOL,
+          'resume_loss_rel_diff_max': max(resume_rel.values()),
+          'launches_per_train_step': [r['launches'] for r in record['train']],
+          'launches_per_eval_step': [r['launches'] for r in record['eval']],
+          'expected_per_train_step': per_train, 'expected_per_eval_step': per_eval,
+          'launches': launches}, log)
+    print(f'train_loop: largest relative loss difference after the resume '
+          f'{max(resume_rel.values()):.3e} (tolerance {RESUME_TOL})', flush=True)
+    check(all(np.isfinite(losses)), f'non-finite loop losses {losses}')
+    check(len(record['train']) == LOOP_STEPS, f'{len(record["train"])} train steps')
+    check(len(record['eval']) == LOOP_EPOCHS, f'{len(record["eval"])} eval steps')
+    for i, r in enumerate(record['train'], 1):
+        check(r['launches'] == per_train, f'train step {i} launches {r["launches"]}')
+    for i, r in enumerate(record['eval'], 1):
+        check(r['launches'] == per_eval, f'eval step {i} launches {r["launches"]}')
+    check(all(launches[name] == LOOP_STEPS * per_train[name] + LOOP_EPOCHS * per_eval[name]
+              for name in launches), f'loop launch counts {launches}')
+    check(np.isfinite(metrics_a[LOOP_STEPS, 'val'].get('val/psnr', np.nan)), 'no finite val/psnr')
+    check(len(stopped['train']) == LOOP_KILL_AT, f'run B stopped after {len(stopped["train"])}')
+    # the last save before the stop is the first epoch's end
+    check(len(resumed['train']) == LOOP_STEPS - LOOP_STEPS // LOOP_EPOCHS,
+          f'run B resumed with {len(resumed["train"])} steps left')
+    check(max(resume_rel.values()) <= RESUME_TOL,
+          f'resumed losses differ from the uninterrupted run: {resume_rel}')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -939,6 +1204,7 @@ def main():
     launches['train_dropout_0'] = train_path(ac, no_dropout, log, card, TRAIN_STEPS_NO_DROPOUT)
     train_card_vs_cpu(no_dropout, log)
     train_card_vs_cpu(dataclasses.replace(config, n_layer=COMPARE_DROPOUT_LAYERS), log)
+    launches['train_loop'] = train_loop(ac, config, log, card)
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

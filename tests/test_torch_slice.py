@@ -1,7 +1,8 @@
 """The port's serving slice end to end against the JAX package, its
-independence from the JAX package (serving and train steps without and
-with dropout, with viewformer_tpu, jax and flax blocked), and
-chip_smoke.py's refusal to run without a card."""
+independence from the JAX package (serving, train steps without and with
+dropout, and the reader, checkpoints and train_transformer with a resume,
+with viewformer_tpu, jax and flax blocked), and chip_smoke.py's refusal to
+run without a card."""
 import os
 import shutil
 import subprocess
@@ -107,6 +108,25 @@ state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
     torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
+import os, tempfile
+from viewformer_tpu_torch.data.dataset import write_dataset_info, write_shard
+from viewformer_tpu_torch.train.transformer import train_transformer
+data = os.path.join(tempfile.mkdtemp(), 'data')
+os.makedirs(data)
+write_dataset_info(os.path.join(data, 'info.json'), dict(name='d', token_image_size=2,
+    features=['cameras', 'codes'], train_size=1, test_size=1, splits=['train', 'test']))
+for split in ('train', 'test'):
+    write_shard(os.path.join(data, 'd-%s-000001-of-000001' % split),
+        [dict(cameras=rng.randn(7, 7), codes=rng.randint(0, 16, (7, 2, 2)))] * 2,
+        ['cameras', 'codes'])
+job = os.path.join(os.path.dirname(data), 'job')
+kwargs = dict(epochs=1, batch_size=2, checkpoint_every=1, use_bf16=False, progress=False,
+    device='cpu')
+_, state = train_transformer(config, data, job, total_steps=2, **kwargs)
+assert state.step == 2 and os.listdir(os.path.join(job, 'last')) == ['2.pt']
+_, state = train_transformer(config, data, job, total_steps=3, **kwargs)  # resumes at 2
+assert state.step == 3
+assert len(open(os.path.join(job, 'metrics.jsonl')).readlines()) == 4  # 3 train, 1 val
 assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
                if sys.modules[m])
 print('ran without jax and viewformer_tpu')

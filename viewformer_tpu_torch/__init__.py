@@ -1,7 +1,9 @@
 """viewformer_tpu_torch: the PyTorch and CUDA port of viewformer_tpu.
 
 Runs the serving main path (encode -> prefill -> generate -> decode ->
-localize) and the transformer train step (with and without dropout) with
+localize) and transformer training (with and without dropout; the train
+step, and the loop train_transformer with its token-dataset reader,
+checkpoints and CLI, `python -m viewformer_tpu_torch train ...`) with
 PyTorch on an NVIDIA H100, where the eight attention kernels, forward and
 backward, are hand-written CUDA (csrc/). The entry points put their tensors
 on the card unless the caller passes device='cpu'; on CPU tensors the

@@ -1,9 +1,12 @@
-"""Model registry (port of viewformer_tpu/models/__init__.py). Loading an
-orbax checkpoint needs jax and is not ported: convert JAX variables with
-utils/convert.state_dict_from_jax instead."""
+"""Model registry and checkpoint loading (port of
+viewformer_tpu/models/__init__.py). load_model reads the port's own job dirs
+(torch.save checkpoints). Orbax job dirs of the JAX package need jax: convert
+JAX variables with utils/convert.state_dict_from_jax instead."""
+import os
+
 import torch
 
-from ..config import MIGTConfig, VQGANConfig
+from ..config import MIGTConfig, VQGANConfig, load_config
 from ..utils.device import resolve_device
 
 
@@ -24,3 +27,22 @@ class AutoModel:
         else:
             raise ValueError(f'No model registered for config {type(config).__name__}')
         return model.to(device).eval()
+
+
+def load_model(job_dir, dtype=torch.float32, device='cuda'):
+    """The model of a job dir written by the port's CheckpointManager:
+    config.json, then the weights of best/ or else last/ (the 'model' entry
+    of the saved state), as an MIGT or a VQGAN in `dtype` on `device`, in
+    eval mode."""
+    if not any(os.path.isdir(os.path.join(job_dir, d)) for d in ('best', 'last')):
+        raise FileNotFoundError(f'No checkpoint (best/ or last/) under {job_dir}')
+    from ..train.checkpoint import restore_checkpoint
+    # the initial weights are overwritten: a fixed generator keeps torch's
+    # global one untouched
+    model = AutoModel.from_config(load_config(job_dir), dtype, device,
+                                  torch.Generator().manual_seed(0))
+    state, _ = restore_checkpoint(job_dir, prefer='best')
+    if state is None:
+        raise FileNotFoundError(f'No committed checkpoint under {job_dir}')
+    model.load_state_dict(state['model'])
+    return model
