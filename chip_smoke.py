@@ -58,7 +58,22 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      counts of every train step and eval step, val/psnr, and the resumed
      losses against the uninterrupted run's; prints the loop's step time
      against phase 5's bare step, the reader's host time a batch, how long
-     save() blocks the loop and the commit lag, and the peak memory.
+     save() blocks the loop and the commit lag, and the peak memory;
+  8. serving sessions and the evaluators (serve_and_evaluate): random-weight
+     MIGTConfig() and VQGANConfig() saved as port job dirs and loaded by
+     create_session (bf16, f32 islands) with 32 scenes and 20 frames of
+     capacity: start on frames 0-18 of a phase-3 request and render camera
+     19 (codes equal to generate_batch_predictions'); start on 0-17,
+     observe 18 (logits within LOGITS_TOL of the first); render 4 cameras in
+     one call (logits within LOGITS_TOL of one-view renders); localize
+     frame 19 (within LOGITS_TOL of the one-shot camera, relative); exact
+     launches of each call; then
+     evaluate_transformer, evaluate_transformer_multictx (64 random
+     sequences of 20 frames at 128 px, batches of 32) and evaluate_codebook
+     (their 1280 frames, batches of 64) without storing images: the
+     results.json keys of the JAX package, finite values but lpips (null),
+     exact launches a batch; prints the session's CUDA-event times, seconds
+     an evaluation batch and the peak memory.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -123,6 +138,20 @@ UPDATE_COSINE = 0.95
 # kernel whose reduction order varies between runs.
 LOOP_STEPS, LOOP_EPOCHS, LOOP_SAVE_EVERY, LOOP_KILL_AT = 6, 2, 2, 4
 RESUME_TOL = 1e-6
+# Phase 8: a session renders VIEWS cameras in one call; the evaluators run
+# over EVAL_SEQUENCES random sequences (batches of B, the codebook's of
+# CODEBOOK_BATCH frames); the session's calls are timed N_TIMED times, and
+# observe N_OBSERVE times as its context grows from 19 frames.
+VIEWS, EVAL_SEQUENCES, CODEBOOK_BATCH, N_TIMED, N_OBSERVE = 4, 64, 64, 10, 11
+# Phase 8: the session's bf16 results against another bf16 path to the same
+# function, relative to the largest magnitude, within LOGITS_TOL (as phase
+# 4, it checks that the path is the same): a render of N views against
+# one-view renders (the GEMMs run at 4x the rows, so cuBLAS may round
+# otherwise and near-tied codes flip: in PR 9's first chip run 98.9-99.3% of
+# the codes were equal); localize against the one-shot path's camera (the
+# query frame is encoded in a batch of 32 frames, not of 640, which may flip
+# a code of its 64). A view paired with another scene's cache, or a camera
+# not mapped back through the session's transform, is off by O(1).
 
 
 def compared(n_layer):
@@ -273,9 +302,16 @@ def kernel_checks(ac, log):
     cases = [('block_causal_attention_fwd', 'prefill: T=19 context frames (odd T)',
               (rand(BH, 19 * L, dh), rand(BH, 19 * L, dh), rand(BH, 19 * L, dh)), (L,))]
     cases += [('branch_attention_fwd', f'cache form: one query frame over a 20-frame cache, '
-               f'n={n}') + cache_form(n) for n in (19, 0, 1, 7)]
+               f'n={n}') + cache_form(n) for n in (19, 0, 1, 7, 18)]
     cases += [('branch_attention_fwd', f'one-shot form: S={S} branches, T=20') + one_shot(S)
               for S in (1, 2)]
+    # phase 8: a session's render of N = 4 views (query rows N-major over
+    # the B*H cache rows) and the multi-context evaluation's stream 0
+    cases += [('branch_attention_fwd', 'cache form: N=4 views a scene over a 20-frame cache, '
+               'n=19', (rand(4 * BH, L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh),
+                        rand(4 * BH, L, dh), rand(4 * BH, L, dh)), (L, 19, 19)),
+              ('block_causal_attention_fwd', 'multi-context evaluation: T=20',
+               (rand(BH, 20 * L, dh), rand(BH, 20 * L, dh), rand(BH, 20 * L, dh)), (L,))]
     results = {}
     for name, form, tensors, args in cases:
         kernel, plain = getattr(ac, name), getattr(ac, name.replace('_fwd', '_plain'))
@@ -1159,6 +1195,301 @@ def train_loop(ac, config, log, card):
     return launches
 
 
+def save_transformer(path):
+    """A random-weight MIGTConfig() transformer (seed 0) saved as a port job
+    dir, as save_codebook saves the codebook."""
+    from viewformer_tpu_torch.config import MIGTConfig
+    from viewformer_tpu_torch.models import AutoModel
+    from viewformer_tpu_torch.train.checkpoint import CheckpointManager
+
+    config = MIGTConfig()
+    model = AutoModel.from_config(config, torch.float32, 'cpu', torch.Generator().manual_seed(0))
+    mgr = CheckpointManager(path, config)
+    mgr.save(0, {'model': model.state_dict()})
+    mgr.close()
+    return path
+
+
+class RandomSequences:
+    """An in-memory loader of EVAL_SEQUENCES seeded random sequences of S
+    frames at SIZE px: {'frames': uint8 [S, SIZE, SIZE, 3], 'cameras':
+    [S, 7] with unit quaternions}."""
+
+    def __len__(self):
+        return EVAL_SEQUENCES
+
+    def num_images_per_sequence(self):
+        return [S] * EVAL_SEQUENCES
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(1000 + idx)
+        quaternion = rng.randn(S, 4)
+        quaternion /= np.linalg.norm(quaternion, axis=-1, keepdims=True)
+        return {'frames': rng.randint(0, 256, (S, SIZE, SIZE, 3)).astype(np.uint8),
+                'cameras': np.concatenate([rng.randn(S, 3), quaternion], -1).astype(np.float32)}
+
+
+def counts(ac):
+    return {fn.__name__: fn.launches for fn in ac.KERNELS}
+
+
+def launches_of(ac, fn):
+    """(fn's result, the kernel launches it made)."""
+    before = counts(ac)
+    out = fn()
+    return out, {name: n - before[name] for name, n in counts(ac).items()}
+
+
+def only(ac, **launches):
+    out = {fn.__name__: 0 for fn in ac.KERNELS}
+    out.update(launches)
+    return out
+
+
+def session_path(ac, session, log, card):
+    """Phase 8, items 1-4: a session against the one-shot path. Returns the
+    launch counts of the session's calls."""
+    from viewformer_tpu_torch.evaluate.transformer import generate_batch_predictions
+
+    n_layer = session._transformer.config.n_layer
+    per_pass = only(ac, branch_attention_fwd=n_layer)
+    images, cameras = make_requests(1, seed=1)[0]
+    one_shot = generate_batch_predictions(session._transformer, session._codebook, images, cameras)
+    torch.cuda.synchronize()
+
+    ac.reset_launch_counts()
+    steps = {}
+    _, steps['start T=19'] = launches_of(ac, lambda: session.start(images[:, :S - 1],
+                                                                  cameras[:, :S - 1]))
+    (_, codes), steps['render N=1'] = launches_of(
+        ac, lambda: session.render(cameras[:, S - 1], return_tokens=True))
+    logits, steps['render_logits N=1'] = launches_of(
+        ac, lambda: session.render_logits(cameras[:, S - 1:]))
+    queries = cameras[:, S - VIEWS:]
+    (_, view_codes), steps[f'render N={VIEWS}'] = launches_of(
+        ac, lambda: session.render(queries, return_tokens=True))
+    single_codes = [session.render(queries[:, n], return_tokens=True)[1] for n in range(VIEWS)]
+    view_logits = session.render_logits(queries)
+    single_logits = [session.render_logits(queries[:, n:n + 1])[:, 0] for n in range(VIEWS)]
+    located, steps['localize'] = launches_of(ac, lambda: session.localize(images[:, S - 1]))
+    with torch.inference_mode():
+        query_codes = session._encode(session._prepare_images(images[:, S - 1], 1))
+        request_codes = session._codebook.encode(session._prepare_images(images, 2).reshape(
+            (B * S, SIZE, SIZE, 3)))[1].reshape(B, S, 8, 8)[:, S - 1]
+    session.start(images[:, :S - 2], cameras[:, :S - 2])
+    _, steps['observe'] = launches_of(ac, lambda: session.observe(images[:, S - 2],
+                                                                  cameras[:, S - 2]))
+    observed_logits = session.render_logits(cameras[:, S - 1:])
+    launches = counts(ac)
+
+    expected = {'start T=19': only(ac, block_causal_attention_fwd=n_layer - 1),
+                'render N=1': per_pass, 'render_logits N=1': per_pass,
+                f'render N={VIEWS}': per_pass, 'localize': per_pass, 'observe': per_pass}
+    logits_rel = float(np.abs(observed_logits - logits).max() / np.abs(logits).max())
+    views_rel = [float(np.abs(view_logits[:, n] - single_logits[n]).max()
+                       / np.abs(single_logits[n]).max()) for n in range(VIEWS)]
+    localize_err = float(np.abs(located - one_shot['generated_cameras']).max())
+    localize_rel = localize_err / float(np.abs(one_shot['generated_cameras']).max())
+    record = {
+        'phase': 'session', 'card': card, 'batch': B, 'max_frames': S, 'views': VIEWS,
+        'codes_equal_one_shot': float((codes == one_shot['generated_codes']).mean()),
+        'observe_logits_rel_err': logits_rel, 'observe_logits_tol': LOGITS_TOL,
+        'observe_code_agreement': float((observed_logits.argmax(-1) == logits.argmax(-1)).mean()),
+        'views_codes_equal_single': [float((view_codes[:, n] == single_codes[n]).mean())
+                                     for n in range(VIEWS)],
+        'views_logits_rel_err': views_rel, 'views_logits_tol': LOGITS_TOL,
+        'localize_max_abs_diff': localize_err, 'localize_rel_err': localize_rel,
+        'localize_tol': LOGITS_TOL,
+        'query_codes_equal_request_encode': float((query_codes == request_codes).float().mean()),
+        'launches_by_call': steps, 'expected_by_call': expected, 'launches': launches}
+    emit(record, log)
+    print(f'session: observe(frame 18) vs start(0-18): logits rel err {logits_rel:.3e} '
+          f'(tol {LOGITS_TOL}), equal codes {record["observe_code_agreement"]:.4f}; '
+          f'{VIEWS} views vs one-view renders: logits rel err {max(views_rel):.3e}, equal codes '
+          f'{min(record["views_codes_equal_single"]):.4f}; localize vs one-shot: max abs diff '
+          f'{localize_err:.3e}, rel err {localize_rel:.3e} (tol {LOGITS_TOL}), query-frame codes '
+          f'equal to the request encode\'s {record["query_codes_equal_request_encode"]:.4f}',
+          flush=True)
+    check(codes.shape == (B, 8, 8), f'session codes shape {codes.shape}')
+    check(record['codes_equal_one_shot'] == 1.0,
+          f'session codes differ from the one-shot path: {record["codes_equal_one_shot"]} equal')
+    check(np.isfinite(observed_logits).all(), 'non-finite logits after observe')
+    check(logits_rel <= LOGITS_TOL, f'observe logits differ by {logits_rel} > {LOGITS_TOL}')
+    check(np.isfinite(view_logits).all() and max(views_rel) <= LOGITS_TOL,
+          f'N={VIEWS} render logits differ from one-view renders by {views_rel} > {LOGITS_TOL}')
+    check(np.isfinite(located).all() and localize_rel <= LOGITS_TOL,
+          f'localize differs from the one-shot path by {localize_rel} > {LOGITS_TOL} (relative)')
+    check(steps == expected, f'session launches {steps} != {expected}')
+    return launches
+
+
+def session_times(session, log, card):
+    """Phase 8, item 6: CUDA-event medians of the session's calls (numpy out,
+    so each ends with its copy to the host)."""
+    images, cameras = make_requests(1, seed=2)[0]
+    ms = {'start T=19': time_ms(lambda: session.start(images[:, :S - 1], cameras[:, :S - 1]),
+                                N_TIMED)}
+    for n in (1, VIEWS):
+        ms[f'render N={n}'] = time_ms(lambda: session.render(cameras[:, S - n:]), N_TIMED)
+    ms['localize'] = time_ms(lambda: session.localize(images[:, S - 1]), N_TIMED)
+    # render N=1 in parts: the query pass (logits copied out) and the decode
+    ms['render_logits N=1'] = time_ms(lambda: session.render_logits(cameras[:, S - 1:]), N_TIMED)
+    codes = torch.from_numpy(session.render(cameras[:, S - 1], return_tokens=True)[1]).to(session._device)
+    with torch.inference_mode():
+        ms[f'decode {B} frames'] = time_ms(lambda: session._codebook.decode_code(codes), N_TIMED)
+    # observe appends: time single calls as the context grows from 19 frames
+    observe = []
+    for t in range(session.max_frames - session.context_frames):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        session.observe(images[:, t % S], cameras[:, t % S])
+        end.record()
+        torch.cuda.synchronize()
+        observe.append(start.elapsed_time(end))
+    ms[f'observe n=19..{session.max_frames - 1}'] = statistics.median(observe[1:])
+    emit({'phase': 'session_times', 'card': card, 'batch': B, 'ms_median': ms,
+          'calls_timed': N_TIMED, 'observe_ms': observe}, log)
+    for call, t in ms.items():
+        print(f'session {call}: {t:.3f} ms, B={B} ({card})', flush=True)
+
+
+def evaluate_path(ac, jobs, log, card):
+    """Phase 8, item 5: the three evaluators over RandomSequences. Returns
+    their launch counts."""
+    from viewformer_tpu_torch.evaluate import codebook as ecodebook
+    from viewformer_tpu_torch.evaluate import multictx as emultictx
+    from viewformer_tpu_torch.evaluate import transformer as etransformer
+
+    from viewformer_tpu_torch.config import load_config
+
+    n_layer = load_config(jobs['transformer']).n_layer
+    per_batch = {
+        'transformer': only(ac, block_causal_attention_fwd=n_layer - 1,
+                            branch_attention_fwd=2 * n_layer),
+        'transformer-multictx': only(ac, block_causal_attention_fwd=n_layer,
+                                     branch_attention_fwd=n_layer),
+        'codebook': only(ac)}
+    metrics = ['loc-angle', 'loc-dist', 'loc-angle-med', 'loc-dist-med',
+               'mse', 'rmse', 'mae', 'psnr', 'lpips', 'ssim']  # the JAX package's keys
+    expected_keys = {'transformer': metrics,
+                     'transformer-multictx': [f'ctx{i:02d}' for i in range(1, S)],
+                     'codebook': metrics[4:]}
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_eval_')
+    loader = RandomSequences()
+    batches, results = {}, {}
+    modules = {'transformer': etransformer, 'transformer-multictx': emultictx,
+               'codebook': ecodebook}
+    ac.reset_launch_counts()
+    try:
+        for kind, module in modules.items():
+            predict = module.generate_batch_predictions
+            batches[kind] = []
+
+            def timed(*args, predict=predict, kind=kind):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, launches = launches_of(ac, lambda: predict(*args))
+                batches[kind].append({'s': time.perf_counter() - t0, 'launches': launches})
+                return out
+            module.generate_batch_predictions = timed
+            job_dir = os.path.join(tmp, kind)
+            t0 = time.perf_counter()
+            try:
+                if kind == 'codebook':
+                    results[kind] = ecodebook.evaluate_codebook(
+                        loader, jobs['codebook'], job_dir, batch_size=CODEBOOK_BATCH,
+                        num_store_images=0, progress=False)
+                else:
+                    evaluate = (etransformer.evaluate_transformer if kind == 'transformer'
+                                else emultictx.evaluate_transformer_multictx)
+                    results[kind] = evaluate(loader, jobs['transformer'], jobs['codebook'],
+                                             job_dir, batch_size=B, num_store_images=0,
+                                             progress=False)
+            finally:
+                module.generate_batch_predictions = predict
+            batches[kind + ' run_s'] = time.perf_counter() - t0
+            with open(os.path.join(job_dir, 'results.json')) as f:
+                check(json.load(f) == json.loads(json.dumps(results[kind])),
+                      f'{kind}: results.json differs from the returned results')
+            check(os.listdir(job_dir) == ['results.json'], f'{kind}: stored {os.listdir(job_dir)}')
+        launches = counts(ac)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_batches = {'transformer': EVAL_SEQUENCES // B, 'transformer-multictx': EVAL_SEQUENCES // B,
+                 'codebook': EVAL_SEQUENCES * S // CODEBOOK_BATCH}
+    emit({'phase': 'evaluate', 'card': card, 'sequences': EVAL_SEQUENCES,
+          'frames_per_sequence': S, 'image_size': SIZE, 'batch': B,
+          'codebook_batch': CODEBOOK_BATCH, 'results': results,
+          'batch_s': {kind: [b['s'] for b in batches[kind]] for kind in modules},
+          'batch_s_median': {kind: statistics.median(b['s'] for b in batches[kind])
+                             for kind in modules},
+          'run_s': {kind: batches[kind + ' run_s'] for kind in modules},
+          'launches_per_batch': {kind: [b['launches'] for b in batches[kind]] for kind in modules},
+          'expected_per_batch': per_batch, 'launches': launches}, log)
+    for kind in modules:
+        print(f'evaluate {kind}: {statistics.median(b["s"] for b in batches[kind]):.4f} s a batch '
+              f'({len(batches[kind])} batches, {card})', flush=True)
+    for kind, module in modules.items():
+        check(len(batches[kind]) == n_batches[kind], f'{kind}: {len(batches[kind])} batches')
+        for i, b in enumerate(batches[kind], 1):
+            check(b['launches'] == per_batch[kind], f'{kind} batch {i} launches {b["launches"]}')
+        rows = results[kind].values() if kind == 'transformer-multictx' else [results[kind]]
+        check(list(results[kind]) == expected_keys[kind],
+              f'{kind}: results.json keys {list(results[kind])}')
+        for row in rows:
+            if kind == 'transformer-multictx':
+                check(list(row) == metrics, f'{kind}: row keys {list(row)}')
+            for key, value in row.items():
+                check(value is None if key == 'lpips' else np.isfinite(value),
+                      f'{kind}: {key} = {value}')
+    check(all(launches[name] == sum(n_batches[k] * per_batch[k][name] for k in modules)
+              for name in launches), f'evaluate launch counts {launches}')
+    return launches
+
+
+def serve_and_evaluate(ac, log, card):
+    """Phase 8. Returns the launch counts of the session and the evaluators."""
+    from viewformer_tpu_torch.serve import create_session
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_jobs_')
+    try:
+        t0 = time.perf_counter()
+        jobs = {'transformer': save_transformer(os.path.join(tmp, 'transformer')),
+                'codebook': save_codebook(os.path.join(tmp, 'codebook'))}
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        session = create_session(jobs['transformer'], jobs['codebook'], batch_size=B,
+                                 max_frames=S)
+        load_s = time.perf_counter() - t0
+        check(session._transformer.wte.weight.dtype == torch.bfloat16
+              and session._transformer.pose_criterion.pose_classifier.c_fc.weight.dtype
+              == torch.float32 and session._codebook.quantizer.embeddings.dtype == torch.float32,
+              'create_session: bf16 tower with f32 islands')
+        launches = {'session': session_path(ac, session, log, card)}
+        session_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del session
+        torch.cuda.empty_cache()
+        timing = create_session(jobs['transformer'], jobs['codebook'], batch_size=B,
+                                max_frames=S - 1 + N_OBSERVE)
+        session_times(timing, log, card)
+        del timing
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launches['evaluate'] = evaluate_path(ac, jobs, log, card)
+        evaluate_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({'phase': 'serve_and_evaluate', 'card': card, 'setup_s': setup_s,
+          'create_session_s': load_s, 'session_max_memory_allocated_gb': session_peak_gb,
+          'evaluate_max_memory_allocated_gb': evaluate_peak_gb}, log)
+    print(f'serve_and_evaluate: peak memory {session_peak_gb:.3f} GB (session, B={B}, '
+          f'{S} frames), {evaluate_peak_gb:.3f} GB (evaluators) ({card})', flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -1205,6 +1536,8 @@ def main():
     train_card_vs_cpu(no_dropout, log)
     train_card_vs_cpu(dataclasses.replace(config, n_layer=COMPARE_DROPOUT_LAYERS), log)
     launches['train_loop'] = train_loop(ac, config, log, card)
+    torch.cuda.empty_cache()
+    launches.update(serve_and_evaluate(ac, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

@@ -1,8 +1,9 @@
 """The port's serving slice end to end against the JAX package, its
 independence from the JAX package (serving, train steps without and with
-dropout, and the reader, checkpoints and train_transformer with a resume,
-with viewformer_tpu, jax and flax blocked), and chip_smoke.py's refusal to
-run without a card."""
+dropout, the reader, checkpoints and train_transformer with a resume, a
+serving session, the colors loader and the three evaluators, with
+viewformer_tpu, jax and flax blocked), and chip_smoke.py's refusal to run
+without a card."""
 import os
 import shutil
 import subprocess
@@ -127,6 +128,38 @@ assert state.step == 2 and os.listdir(os.path.join(job, 'last')) == ['2.pt']
 _, state = train_transformer(config, data, job, total_steps=3, **kwargs)  # resumes at 2
 assert state.step == 3
 assert len(open(os.path.join(job, 'metrics.jsonl')).readlines()) == 4  # 3 train, 1 val
+from viewformer_tpu_torch.serve import ServingSession
+session = ServingSession(transformer, codebook, batch_size=1, max_frames=3)
+frames = rng.randint(0, 256, (3, 16, 16, 3)).astype(np.uint8)
+cams = rng.randn(3, 7).astype(np.float32)
+session.start(frames[:2], cams[:2])
+session.observe(frames[2], cams[2])
+assert session.context_frames == 3
+assert session.render(cams[None, :2]).shape == (1, 2, 16, 16, 3)
+assert np.isfinite(session.localize(frames[None, 0])).all()
+from viewformer_tpu_torch.evaluate.codebook import evaluate_codebook
+from viewformer_tpu_torch.evaluate.multictx import evaluate_transformer_multictx
+from viewformer_tpu_torch.evaluate.transformer import evaluate_transformer
+from viewformer_tpu_torch.data.loaders import build
+from viewformer_tpu_torch.train.checkpoint import CheckpointManager
+jobs = {{}}
+for name, model in (('t', transformer), ('c', codebook)):
+    jobs[name] = os.path.join(os.path.dirname(data), name)
+    mgr = CheckpointManager(jobs[name], model.config)
+    mgr.save(0, {{'model': model.state_dict()}})
+    mgr.close()
+loader = lambda size: build('colors', split='test', num_sequences=2, sequence_size=3,
+    image_size=size)
+kwargs = dict(num_store_images=1, progress=False, use_bfloat16=False, device='cpu')
+out = os.path.dirname(data)
+result = evaluate_transformer(loader, jobs['t'], jobs['c'], os.path.join(out, 'e1'),
+    sequence_size=3, **kwargs)
+assert result['lpips'] is None and result['psnr'] > 0 and np.isfinite(result['loc-dist'])
+result = evaluate_transformer_multictx(loader, jobs['t'], jobs['c'], os.path.join(out, 'e2'),
+    sequence_size=3, **kwargs)
+assert list(result) == ['ctx01', 'ctx02'] and np.isfinite(result['ctx02']['psnr'])
+result = evaluate_codebook(loader, jobs['c'], os.path.join(out, 'e3'), **kwargs)
+assert np.isfinite(result['ssim'])
 assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
                if sys.modules[m])
 print('ran without jax and viewformer_tpu')

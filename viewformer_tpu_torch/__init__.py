@@ -1,15 +1,26 @@
 """viewformer_tpu_torch: the PyTorch and CUDA port of viewformer_tpu.
 
-Runs the serving main path (encode -> prefill -> generate -> decode ->
-localize) and transformer training (with and without dropout; the train
-step, and the loop train_transformer with its token-dataset reader,
-checkpoints and CLI, `python -m viewformer_tpu_torch train ...`) with
-PyTorch on an NVIDIA H100, where the eight attention kernels, forward and
-backward, are hand-written CUDA (csrc/). The entry points put their tensors
-on the card unless the caller passes device='cpu'; on CPU tensors the
-kernels' plain PyTorch versions run. The JAX package stays the reference;
-this package imports nothing of it, and keeps its own copy of the config
-(config.py).
+Runs on an NVIDIA H100, where the eight attention kernels, forward and
+backward, are hand-written CUDA (csrc/):
+
+- serving: the one-shot path (evaluate.transformer.generate_batch_predictions:
+  encode -> prefill -> generate -> decode -> localize) and KV-cached
+  sessions (serve.create_session / ServingSession: start, observe, render of
+  N views, localize), with the JSONL protocol `python -m
+  viewformer_tpu_torch serve`;
+- evaluation: evaluate.transformer.evaluate_transformer,
+  evaluate.multictx.evaluate_transformer_multictx and
+  evaluate.codebook.evaluate_codebook over the loaders of data.loaders
+  (colors, dataset), with the metrics of utils.metrics; `python -m
+  viewformer_tpu_torch evaluate transformer|transformer-multictx|codebook`;
+- transformer training (with and without dropout; the train step, and the
+  loop train_transformer with its token-dataset reader, checkpoints and
+  CLI, `python -m viewformer_tpu_torch train ...`).
+
+The entry points put their tensors on the card unless the caller passes
+device='cpu'; on CPU tensors the kernels' plain PyTorch versions run. The
+JAX package stays the reference; this package imports nothing of it, and
+keeps its own copy of the config (config.py).
 """
 import torch
 

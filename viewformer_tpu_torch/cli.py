@@ -2,14 +2,23 @@
 
   train transformer             train MIGT on a token dataset
   train finetune-transformer    continue a trained transformer's job
+  evaluate transformer          novel-view synthesis and localization metrics
+  evaluate transformer-multictx the metrics of every context size, one pass
+  evaluate codebook             the codebook's reconstruction metrics
+  serve                         the JSONL serving protocol (commands/serve.py)
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
 without the TPU-only --steps-per-call, --seq-parallelism and
 --force-wide-scan, with --remat-policy full only, and with --device (default
-cuda). The other commands are not ported yet.
+cuda). The evaluate commands take `--loader NAME` (default dataset) and pass
+every `--loader-<param> VALUE` (or `--loader-<param>=VALUE`) to the loader
+as <param>=VALUE, parsed as a bool, int or float where it reads as one; they
+compute in bf16 (the card's kernels take bf16) unless given --fp32, as serve
+does. The other commands are not ported yet.
 """
 import argparse
 import dataclasses
+import sys
 
 from .config import MIGTConfig, load_config
 from .utils.schedules import Schedule
@@ -43,6 +52,55 @@ def _add_common(parser):
     parser.add_argument('--wandb', action='store_true')
     parser.add_argument('--device', default='cuda',
                         help="where to train: a CUDA device (default) or 'cpu'")
+
+
+def _parse_value(value):
+    lowered = value.lower()
+    if lowered in ('true', 'false'):
+        return lowered == 'true'
+    for cast in (int, float):
+        try:
+            return cast(value)
+        except ValueError:
+            continue
+    return value
+
+
+def _split_loader_args(argv):
+    """(argv without its --loader-<param> flags, {param: value})."""
+    rest, loader_kwargs = [], {}
+    args = iter(argv)
+    for arg in args:
+        if not arg.startswith('--loader-'):
+            rest.append(arg)
+            continue
+        key, sep, value = arg[len('--loader-'):].partition('=')
+        if not sep:
+            value = next(args, None)
+            if value is None:
+                raise SystemExit(f'{arg} needs a value')
+        loader_kwargs[key.replace('-', '_')] = _parse_value(value)
+    return rest, loader_kwargs
+
+
+def _add_evaluate_common(parser, transformer=True):
+    parser.add_argument('--loader', dest='loader_name', default='dataset')
+    if transformer:
+        parser.add_argument('--transformer-model', required=True)
+    parser.add_argument('--codebook-model', required=True)
+    parser.add_argument('--job-dir', required=True)
+    parser.add_argument('--num-store-images', type=int, default=100)
+    parser.add_argument('--image-size', type=int, default=None)
+    parser.add_argument('--fp32', action='store_true',
+                        help='f32 weights (for the CPU: the card\'s kernels take bf16)')
+    parser.add_argument('--device', default='cuda',
+                        help="where to evaluate: a CUDA device (default) or 'cpu'")
+    if transformer:
+        parser.add_argument('--batch-size', type=int, default=1)
+        parser.add_argument('--num-eval-sequences', type=int, default=None)
+        parser.add_argument('--pose-multiplier', type=float, default=None)
+        parser.add_argument('--sequence-size', type=int, default=None)
+        parser.add_argument('--store-ctx', action='store_true')
 
 
 def _parser():
@@ -79,6 +137,35 @@ def _parser():
     for flag, kind in _FINETUNE_OPTIONS:
         finetune.add_argument(f'--{flag}', type=kind, default=None)
     finetune.set_defaults(run=_finetune_transformer)
+
+    evaluate = groups.add_parser('evaluate', help='evaluation').add_subparsers(
+        dest='command', required=True)
+    single = evaluate.add_parser('transformer',
+                                 help='Single-context novel view synthesis evaluation.')
+    _add_evaluate_common(single)
+    single.set_defaults(run=_evaluate_transformer)
+    multictx = evaluate.add_parser('transformer-multictx',
+                                   help='All-context-sizes-at-once evaluation.')
+    _add_evaluate_common(multictx)
+    multictx.set_defaults(run=_evaluate_multictx)
+    codebook = evaluate.add_parser('codebook', help='Codebook reconstruction evaluation.')
+    _add_evaluate_common(codebook, transformer=False)
+    codebook.add_argument('--batch-size', type=int, default=64)
+    codebook.add_argument('--num-eval-images', type=int, default=None)
+    codebook.set_defaults(run=_evaluate_codebook)
+
+    serve = groups.add_parser(
+        'serve', help='KV-cache serving session: JSON requests on stdin, responses on stdout '
+                      '(the protocol is in viewformer_tpu_torch/commands/serve.py).')
+    serve.add_argument('--transformer-model', required=True)
+    serve.add_argument('--codebook-model', required=True)
+    serve.add_argument('--max-frames', type=int, default=None,
+                       help='context capacity (default: model sequence_size - 1)')
+    serve.add_argument('--pose-multiplier', type=float, default=None)
+    serve.add_argument('--fp32', action='store_true', help='disable bf16 serving weights')
+    serve.add_argument('--device', default='cuda',
+                       help="where to serve: a CUDA device (default) or 'cpu'")
+    serve.set_defaults(run=_serve)
     return parser
 
 
@@ -120,6 +207,59 @@ def _finetune_transformer(args):
                       device=args.device)
 
 
+def _loader(args):
+    """image_size -> the test split of the --loader, with the
+    --loader-<param> arguments."""
+    from .data.loaders import get_loader
+
+    def build(image_size):
+        kwargs = dict(args.loader_kwargs)
+        kwargs.setdefault('split', 'test')
+        if image_size is not None:
+            kwargs['image_size'] = image_size
+        return get_loader(args.loader_name)(**kwargs)
+    return build
+
+
+def _evaluate_kwargs(args):
+    return dict(batch_size=args.batch_size, num_eval_sequences=args.num_eval_sequences,
+                pose_multiplier=args.pose_multiplier, sequence_size=args.sequence_size,
+                num_store_images=args.num_store_images, store_ctx=args.store_ctx,
+                image_size=args.image_size, use_bfloat16=not args.fp32, device=args.device)
+
+
+def _evaluate_transformer(args):
+    from .evaluate.transformer import evaluate_transformer
+    evaluate_transformer(_loader(args), args.transformer_model, args.codebook_model,
+                         args.job_dir, **_evaluate_kwargs(args))
+
+
+def _evaluate_multictx(args):
+    from .evaluate.multictx import evaluate_transformer_multictx
+    evaluate_transformer_multictx(_loader(args), args.transformer_model, args.codebook_model,
+                                  args.job_dir, **_evaluate_kwargs(args))
+
+
+def _evaluate_codebook(args):
+    from .evaluate.codebook import evaluate_codebook
+    evaluate_codebook(_loader(args), args.codebook_model, args.job_dir,
+                      batch_size=args.batch_size, num_eval_images=args.num_eval_images,
+                      num_store_images=args.num_store_images, image_size=args.image_size,
+                      use_bfloat16=not args.fp32, device=args.device)
+
+
+def _serve(args):
+    from .commands.serve import serve_loop
+    serve_loop(args.transformer_model, args.codebook_model, max_frames=args.max_frames,
+               use_bfloat16=not args.fp32, pose_multiplier=args.pose_multiplier,
+               device=args.device)
+
+
 def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    loader_kwargs = {}
+    if argv[:1] == ['evaluate']:
+        argv, loader_kwargs = _split_loader_args(argv)
     args = _parser().parse_args(argv)
+    args.loader_kwargs = loader_kwargs
     args.run(args)

@@ -1,3 +1,3 @@
-"""Token datasets (port of the token half of viewformer_tpu/data): the
-TFRecord codec, the shard writer and the training reader
-`load_token_dataset`."""
+"""Datasets (port of viewformer_tpu/data): the TFRecord codec, the shard
+writer and reader, the training reader `load_token_dataset`, and the
+sequence loaders of `loaders/` (colors, dataset)."""

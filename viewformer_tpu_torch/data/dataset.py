@@ -1,7 +1,8 @@
-"""Dataset storage: info.json, shard names, the legacy GQN camera fix and the
-shard writer (the port's own copy of the token-dataset half of
-viewformer_tpu/data/dataset.py). The layout is the JAX package's, so a
-dataset written by either package reads in the other:
+"""Dataset storage: info.json, shard names, the legacy GQN camera fix, the
+shard writer (cameras and codes) and the shard reader (cameras, codes and
+frames), the port's own copy of viewformer_tpu/data/dataset.py without the
+dataset generators. The layout is the JAX package's, so a dataset written
+by either package reads in the other:
 
   <dir>/info.json
   <dir>/<name>-<split>-NNNNNN-of-MMMMMM.tfrecord   (+ .index sidecar)
@@ -13,6 +14,7 @@ import os
 import numpy as np
 import torch
 
+from ..ops.image import decode_image
 from ..utils import geometry
 from . import tfrecord
 
@@ -75,3 +77,48 @@ def write_shard(path, data, features):
             writer.write(tfrecord.encode_example(example_features))
     tfrecord.build_shard_index(tmp_path, f'{path}.index')
     os.replace(tmp_path, f'{path}.tfrecord')
+
+
+def read_shards(shard_paths, info, image_size=None, features=None, _decode_image=True):
+    """Yield one dict a sequence from shard files: cameras [N, 7] f32 (legacy
+    5-d GQN cameras converted), codes [N, h, w] int64, frames [N, H, W, C]
+    uint8 (decoded with Pillow; with _decode_image=False, the encoded
+    bytes)."""
+    if features is None:
+        features = info.get('features', ['cameras', 'frames'])
+    if image_size is not None and info['frame_size'] != image_size:
+        raise ValueError(f'Dataset has a different image size: {info["frame_size"]} != '
+                         f'{image_size}')
+    token_image_size = info.get('token_image_size')
+    for shard_path in shard_paths:
+        for payload in tfrecord.read_records(shard_path):
+            example = tfrecord.decode_example(payload)
+            output = {}
+            if 'cameras' in features or 'cameras-gqn' in features:
+                poses_num_dim = 5 if 'cameras-gqn' in features else 7
+                poses = np.asarray(example['cameras'], np.float32).reshape(-1, poses_num_dim)
+                if poses_num_dim == 5:
+                    poses = fix_legacy_gqn_cameras(poses)
+                output['cameras'] = poses
+            if 'codes' in features:
+                output['codes'] = np.asarray(example['codes'], np.int64).reshape(
+                    -1, token_image_size, token_image_size)
+            if 'frames' in features or 'images' in features:
+                if _decode_image:
+                    output['frames'] = np.stack([decode_image(x) for x in example['frames']], 0)
+                else:
+                    output['frames'] = example['frames']
+            yield output
+
+
+def read_dataset(dataset_path, split, shards=None, **kwargs):
+    """read_shards over every shard of a split (or the 1-based `shards`)."""
+    info = get_dataset_info(dataset_path)
+    name, size = info['name'], info[f'{split}_size']
+    if shards is None:
+        shards = list(range(1, size + 1))
+    else:
+        shards = [i for i in shards if 1 <= i <= size]
+    paths = [os.path.join(dataset_path, f'{name}-{split}-{i:06d}-of-{size:06d}.tfrecord')
+             for i in shards]
+    return read_shards(paths, info, **kwargs)

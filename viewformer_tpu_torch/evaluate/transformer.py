@@ -1,5 +1,7 @@
 """Single-context novel-view synthesis and localization (port of
-viewformer_tpu/evaluate/transformer.py, the serving main path).
+viewformer_tpu/evaluate/transformer.py): the serving main path, and the
+evaluator over a loader, evaluate_transformer (`python -m
+viewformer_tpu_torch evaluate transformer`).
 
 One request: S-1 context frames with their cameras plus the query frame's
 camera (and its frame, for localization) -> the query frame as uint8 pixels
@@ -9,11 +11,14 @@ localize. The JAX package pads the context with an inert frame for the TPU's
 tiles; the port prefills the S-1 frames directly (block-causal attention
 makes the outputs identical).
 """
+import json
+import os
+
 import numpy as np
 import torch
 
 from ..models import migt_incremental as inc
-from ..ops.image import normalize_images, resize
+from ..ops.image import normalize_images, upload_frames
 from ..utils import geometry
 
 
@@ -108,14 +113,140 @@ def generate_batch_predictions(transformer, codebook, images, cameras, timings=N
     [0, 255]) and cameras [B, S, 7] as numpy -> numpy prediction dict. Runs
     on the device the models are on."""
     device = transformer.wte.weight.device
-    images = np.asarray(images)
-    frames = torch.from_numpy(np.ascontiguousarray(images)).to(device)
-    frames = resize(frames.reshape((-1,) + tuple(frames.shape[2:])), codebook.config.image_size)
-    frames = frames.reshape(tuple(images.shape[:2]) + tuple(frames.shape[1:]))
-    if frames.dtype != torch.uint8:
-        frames = frames.float() / 255.0 * 2.0 - 1.0
+    frames = upload_frames(images, codebook.config.image_size, device)
     cameras = torch.as_tensor(np.asarray(cameras, np.float32), device=device)
     out = make_generate_batch_predictions(transformer, codebook)(frames, cameras, timings)
+    return host_predictions(out, images)
+
+
+def host_predictions(out, images):
+    """A prediction dict of tensors as numpy, with the query frames of
+    `images` [B, S, H, W, C] as ground_truth_images."""
     result = {key: None if value is None else value.cpu().numpy() for key, value in out.items()}
-    result['ground_truth_images'] = images[:, -1]
+    result['ground_truth_images'] = np.asarray(images)[:, -1]
+    return result
+
+
+def _png(path, image):
+    from PIL import Image
+
+    Image.fromarray(np.asarray(image)).save(path, 'PNG')
+
+
+def build_store_predictions(job_dir, limit=100):
+    """-> store(ground_truth_cameras, generated_cameras, ground_truth_images,
+    generated_images, postfix='', ctx=None), which writes the first `limit`
+    samples (all with -1) as {i:08d}-gen.png, -gt.png, -gen.cam.npy,
+    -gt.cam.npy and the context frames under {i:08d}-ctx/. PNGs are written
+    with Pillow, imported only when a sample is stored."""
+    os.makedirs(job_dir, exist_ok=True)
+    counter = {'i': 0}
+
+    def store(ground_truth_cameras, generated_cameras, ground_truth_images,
+              generated_images, postfix='', ctx=None):
+        for bi in range(len(ground_truth_images)):
+            i = counter['i']
+            if limit != -1 and i >= limit:
+                return
+            _png(os.path.join(job_dir, f'{i:08d}-gen{postfix}.png'), generated_images[bi])
+            _png(os.path.join(job_dir, f'{i:08d}-gt{postfix}.png'), ground_truth_images[bi])
+            if generated_cameras is not None:
+                np.save(os.path.join(job_dir, f'{i:08d}-gen{postfix}.cam.npy'),
+                        np.asarray(generated_cameras[bi]))
+            np.save(os.path.join(job_dir, f'{i:08d}-gt{postfix}.cam.npy'),
+                    np.asarray(ground_truth_cameras[bi]))
+            if ctx is not None:
+                ctx_dir = os.path.join(job_dir, f'{i:08d}-ctx{postfix}')
+                os.makedirs(ctx_dir, exist_ok=True)
+                for j, ctx_img in enumerate(np.asarray(ctx[bi])):
+                    _png(os.path.join(ctx_dir, f'{j:02d}.png'), ctx_img)
+            counter['i'] += 1
+    return store
+
+
+def _batched_loader_iterator(loader, sequence_size, batch_size, num_sequences=None):
+    """Batches (frames [b, S, H, W, C], cameras [b, S, 7] f32) of the
+    loader's first num_sequences sequences (all by default), each cut to
+    sequence_size frames; shorter sequences are skipped, the last batch may
+    be smaller."""
+    total = num_sequences if num_sequences is not None else len(loader)
+    batch_frames, batch_cameras = [], []
+    for idx in range(total):
+        item = loader[idx]
+        frames = np.asarray(item['frames'])[:sequence_size]
+        cameras = np.asarray(item['cameras'])[:sequence_size]
+        if len(frames) < sequence_size:
+            continue
+        batch_frames.append(frames)
+        batch_cameras.append(cameras)
+        if len(batch_frames) == batch_size:
+            yield np.stack(batch_frames), np.stack(batch_cameras).astype(np.float32)
+            batch_frames, batch_cameras = [], []
+    if batch_frames:
+        yield np.stack(batch_frames), np.stack(batch_cameras).astype(np.float32)
+
+
+def load_models(transformer_checkpoint, codebook_checkpoint, use_bfloat16, device,
+                pose_multiplier=None):
+    """(transformer, codebook) of two job dirs of the port, in bf16 (the
+    card's kernels take bf16; the f32 islands stay f32) or f32."""
+    from ..models import load_model
+
+    dtype = torch.bfloat16 if use_bfloat16 else torch.float32
+    overrides = {} if pose_multiplier is None else {'pose_multiplier': pose_multiplier}
+    return (load_model(transformer_checkpoint, dtype, device, **overrides),
+            load_model(codebook_checkpoint, dtype, device))
+
+
+def write_results(job_dir, result, indent=4):
+    os.makedirs(job_dir, exist_ok=True)
+    with open(os.path.join(job_dir, 'results.json'), 'w') as f:
+        json.dump(result, f, indent=indent)
+
+
+def print_progress(batch, evaluator):
+    print(f'batch {batch}: ' + ' '.join(f'{k}={v:.4f}' for k, v in
+                                        evaluator.get_progress_bar_info().items()), flush=True)
+
+
+def print_results(result):
+    print('Results:')
+    for m, val in result.items():
+        print(f'    {m}: ' + ('n/a' if val is None else f'{val:.6f}'))
+
+
+def evaluate_transformer(loader, transformer_checkpoint, codebook_checkpoint, job_dir,
+                         batch_size=1, num_eval_sequences=None, pose_multiplier=None,
+                         sequence_size=None, num_store_images=100, store_ctx=False,
+                         image_size=None, progress=True, use_bfloat16=True, device='cuda'):
+    """Novel-view synthesis and localization metrics of a transformer and a
+    codebook (port job dirs) over a loader (or a callable image_size ->
+    loader): each sequence's last frame generated from the others. Writes
+    results.json and the first num_store_images samples to job_dir, prints
+    the results and returns them. Runs on `device`: the card unless the
+    caller asks for the CPU."""
+    from .evaluator import Evaluator
+
+    transformer, codebook = load_models(transformer_checkpoint, codebook_checkpoint,
+                                        use_bfloat16, device, pose_multiplier)
+    if sequence_size is None:
+        sequence_size = transformer.config.sequence_size
+    if callable(loader) and not hasattr(loader, '__getitem__'):
+        loader = loader(codebook.config.image_size)
+
+    store_predictions = build_store_predictions(job_dir, num_store_images)
+    evaluator = Evaluator(image_size=image_size, device=device)
+    batches = _batched_loader_iterator(loader, sequence_size, batch_size, num_eval_sequences)
+    for i, (frames, cameras) in enumerate(batches, 1):
+        prediction = generate_batch_predictions(transformer, codebook, frames, cameras)
+        prediction.pop('generated_codes')
+        evaluator.update_state(**prediction)
+        if store_ctx:
+            prediction['ctx'] = frames[:, :-1]
+        store_predictions(**prediction)
+        if progress:
+            print_progress(i, evaluator)
+    result = evaluator.result()
+    write_results(job_dir, result)
+    print_results(result)
     return result

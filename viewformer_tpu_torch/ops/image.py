@@ -1,4 +1,9 @@
-"""Image normalisation and resize on tensors (port of viewformer_tpu/ops/image.py)."""
+"""Image normalisation and resize on tensors, and the image decoder (port of
+viewformer_tpu/ops/image.py). The JAX package's native libjpeg decoder
+(native/vfimage.cc) is not ported: decode_image uses Pillow."""
+import io
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -11,19 +16,23 @@ def normalize_images(images):
     return images
 
 
-def resize(images, image_size):
+def resize(images, image_size, method=None):
     """Resize [..., H, W, C] images to (image_size, image_size) with the
-    reference preprocessing: nearest when upsampling, bilinear
-    (align_corners=False) when downsampling; uint8 inputs go through [0, 1]
-    float, are clamped and truncated back to uint8. Float inputs come back as
-    float32."""
+    reference preprocessing. method: None (nearest when upsampling, bilinear
+    when downsampling), 'nearest' or 'bilinear' (align_corners=False). uint8
+    inputs go through [0, 1] float, are clamped and truncated back to uint8.
+    Float inputs come back as float32."""
     if images.shape[-2] == image_size and images.shape[-3] == image_size:
         return images
+    if method is None:
+        method = 'nearest' if image_size > images.shape[-2] else 'bilinear'
+    elif method not in ('nearest', 'bilinear'):
+        raise ValueError(f"method must be 'nearest' or 'bilinear', got {method!r}")
     batch_shape = images.shape[:-3]
     x = images.reshape((-1,) + tuple(images.shape[-3:])).permute(0, 3, 1, 2)
     was_uint8 = x.dtype == torch.uint8
     x = x.float() / 255.0 if was_uint8 else x.float()
-    if image_size > images.shape[-2]:
+    if method == 'nearest':
         x = F.interpolate(x, (image_size, image_size), mode='nearest')
     else:
         x = F.interpolate(x, (image_size, image_size), mode='bilinear', align_corners=False)
@@ -31,3 +40,24 @@ def resize(images, image_size):
         x = (x.clamp(0, 1) * 255.0).to(torch.uint8)
     x = x.permute(0, 2, 3, 1)
     return x.reshape(tuple(batch_shape) + tuple(x.shape[1:]))
+
+
+def upload_frames(images, image_size, device):
+    """uint8 (or float in [0, 255]) numpy frames [..., H, W, C] -> a tensor
+    on `device`, resized to image_size: uint8 as it is (normalize_images
+    maps it to [-1, 1] there), float mapped to [-1, 1]."""
+    # a copy when read-only (an image Pillow decoded): torch takes writable arrays
+    images = np.require(np.asarray(images), requirements=('C', 'W'))
+    frames = resize(torch.from_numpy(images).to(device), image_size)
+    return frames if frames.dtype == torch.uint8 else frames.float() / 255.0 * 2.0 - 1.0
+
+
+def decode_image(data):
+    """JPEG or PNG bytes -> uint8 numpy [H, W, C] (RGB, or RGBA as stored),
+    with Pillow, imported here: only image files need it."""
+    from PIL import Image
+
+    with Image.open(io.BytesIO(data)) as pil:
+        if pil.mode not in ('RGB', 'RGBA'):
+            pil = pil.convert('RGB')
+        return np.asarray(pil)
