@@ -73,10 +73,28 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      (their 1280 frames, batches of 64) without storing images: the
      results.json keys of the JAX package, finite values but lpips (null),
      exact launches a batch; prints the session's CUDA-event times, seconds
-     an evaluation batch and the peak memory.
+     an evaluation batch and the peak memory;
+  9. the codebook pipeline (codebook_pipeline), from images to a trained
+     transformer with the port alone: a colors image dataset at 128 px
+     written by generate_dataset_from_loader (32 train and 16 test
+     sequences of 22 frames); train_codebook(VQGANConfig(): bf16 compute,
+     f32 master weights, remat) at 352 images a step for 6 steps in 2
+     epochs, with LPIPS from seeded random weights (not calibrated), one
+     validation batch and a save at each epoch end: finite losses and
+     perplexity, the EMA counter equal to the steps, the median gap between
+     step ends, the bare step (CUDA events), images/s, peak memory and one
+     step split by stage (CUDA events); 3 train steps of 2 frames on the
+     card (bf16) and on the CPU (f32) from the same weights (loss, gradient
+     and update cosines as phase 6, the EMA codebook within 5e-2);
+     generate_codes at batch 352 (a padded tail batch), its codes equal to
+     a direct encode of the same batches, frames/s and the device's share;
+     train_transformer(MIGTConfig()) for 2 steps over the generated codes
+     with the trained codebook, and one evaluate-codebook batch, with exact
+     launches of B5-B8 (the codebook_pipeline path of the kernels line).
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
+import copy
 import dataclasses
 import json
 import os
@@ -152,6 +170,24 @@ VIEWS, EVAL_SEQUENCES, CODEBOOK_BATCH, N_TIMED, N_OBSERVE = 4, 64, 64, 10, 11
 # query frame is encoded in a batch of 32 frames, not of 640, which may flip
 # a code of its 64). A view paired with another scene's cache, or a camera
 # not mapped back through the session's transform, is off by O(1).
+# Phase 9: a colors image dataset of CB_SEQUENCES sequences of CB_FRAMES
+# frames at SIZE px, CB_SHARD sequences a shard (train shards of 440 and 264
+# frames, so generate-codes pads a tail batch; test one batch of 352);
+# train_codebook at VQGANConfig()'s batch of CB_BATCH images an update for
+# CB_STEPS steps in CB_EPOCHS epochs; CB_COMPARE_STEPS card-vs-CPU steps of
+# CB_COMPARE_B frames; the transformer for PIPE_STEPS steps of PIPE_TRAIN_B
+# sequences on the generated codes (32 train sequences of 20 frames an
+# epoch); one evaluate-codebook batch of CB_EVAL_IMAGES frames.
+CB_SEQUENCES, CB_FRAMES, CB_SHARD = {'train': 32, 'test': 16}, 22, 20
+CB_BATCH, CB_ACCUMULATE, CB_STEPS, CB_EPOCHS = 352, 1, 6, 2
+CB_COMPARE_B, CB_COMPARE_STEPS = 2, 3
+PIPE_TRAIN_B, PIPE_STEPS, CB_EVAL_IMAGES = 8, 2, 64
+# Phase 9, card against CPU: as phase 6 (TRAIN_LOSS_TOL, GRAD_COSINE,
+# UPDATE_COSINE). A latent near a tie may take another code in bf16 than in
+# f32; at least CB_CODES_EQUAL of the codes must agree, and the EMA codebook
+# columns that no differing code touches within EMA_TOL of the largest
+# (an average of bf16 latents against one of f32 latents).
+CB_CODES_EQUAL, EMA_TOL = 0.9, 5e-2
 
 
 def compared(n_layer):
@@ -1076,7 +1112,8 @@ def read_metrics(job_dir):
     with open(os.path.join(job_dir, 'metrics.jsonl')) as f:
         for line in f:
             record = json.loads(line)
-            out[record['step'], 'val' if 'val/loss' in record else 'train'] = record
+            val = any(key.startswith('val/') for key in record)
+            out[record['step'], 'val' if val else 'train'] = record
     return out
 
 
@@ -1490,6 +1527,403 @@ def serve_and_evaluate(ac, log, card):
     return launches
 
 
+def codebook_dataset(path):
+    """Phase 9's image dataset through the port's generate_dataset_from_loader:
+    the colors loader at SIZE px, CB_SEQUENCES sequences of CB_FRAMES
+    frames a split, at most CB_SHARD sequences a shard."""
+    from viewformer_tpu_torch.data.dataset import generate_dataset_from_loader
+    from viewformer_tpu_torch.data.loaders import build
+
+    for split, n in CB_SEQUENCES.items():
+        loader = build('colors', split=split, num_sequences=n, sequence_size=CB_FRAMES,
+                       image_size=SIZE)
+        generate_dataset_from_loader(loader, split, os.path.join(path, 'colors'),
+                                     max_sequences_per_shard=CB_SHARD, progress=False)
+    return path
+
+
+def random_lpips():
+    """LPIPS with seeded random weights (not calibrated: the calibrated npz
+    is not in the repository)."""
+    from viewformer_tpu_torch.models.lpips import LPIPS, random_lpips_params
+
+    return LPIPS(random_lpips_params(torch.Generator().manual_seed(0)))
+
+
+def codebook_frames(data, n, split='test'):
+    """The first n frames of a split of the image dataset, uint8 numpy."""
+    from viewformer_tpu_torch.data.dataset import read_dataset
+
+    frames = np.concatenate([item['frames'] for item in read_dataset(data, split)])
+    return frames[:n]
+
+
+def codebook_step_split(config, lpips, batch):
+    """One full-width codebook train step run stage by stage, each stage
+    timed with CUDA events (device ms): the encoder, the quantizer (code
+    search and EMA update), the decoder and the loss with LPIPS forward;
+    then the backward of the loss (LPIPS and L1), of the decoder and of the
+    encoder (each with its remat recompute), and the Adam update. The
+    stages are cut at detached tensors, so the gradients are those of the
+    fused step; the loss is train/codebook's own codebook_loss."""
+    from viewformer_tpu_torch.ops.image import normalize_images
+    from viewformer_tpu_torch.ops.quantizer import quantize_ema
+    from viewformer_tpu_torch.train.codebook import codebook_loss, init_codebook_state
+
+    model, state = init_codebook_state(config, torch.Generator().manual_seed(2))
+    events = {}
+
+    def mark(name):
+        events[name] = torch.cuda.Event(enable_timing=True)
+        events[name].record()
+
+    for _ in range(2):  # the first run picks the cuDNN algorithms
+        state.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        mark('start')
+        x = normalize_images(batch).float()
+        h = model._latents(x)
+        mark('encoder')
+        h_in = h.detach().requires_grad_()
+        quant, e_latent_loss, codes = quantize_ema(model.quantizer, h_in, training=True)
+        mark('quantizer')
+        quant_in = quant.detach().requires_grad_()
+        dec = model.decode(quant_in)
+        mark('decoder')
+        dec_in = dec.detach().requires_grad_()
+        loss, _metrics = codebook_loss(config, lpips, x, dec_in, e_latent_loss, codes)
+        mark('lpips_and_loss')
+        loss.backward()
+        mark('loss_backward')
+        dec.backward(dec_in.grad)
+        mark('decoder_backward')
+        quant.backward(quant_in.grad)  # the straight-through path into h_in
+        h.backward(h_in.grad)
+        mark('encoder_backward')
+        state.optimizer.step()
+        mark('optimizer')
+        torch.cuda.synchronize()
+    names = list(events)
+    split = {b: events[a].elapsed_time(events[b]) for a, b in zip(names, names[1:])}
+    del model, state
+    torch.cuda.empty_cache()
+    return split
+
+
+def codebook_card_vs_cpu(config, lpips, frames, log):
+    """Phase 9 item 3: CB_COMPARE_STEPS train steps of CB_COMPARE_B frames
+    from the same weights on the card (bf16 compute, remat) and on the CPU
+    (f32): the first step's loss, gradients and EMA codebook, then the
+    parameters' moves."""
+    from viewformer_tpu_torch.ops.image import normalize_images
+    from viewformer_tpu_torch.train.codebook import init_codebook_state, make_codebook_train_step
+
+    names = ('encoder.conv_in.weight', 'encoder.mid_attn_1.q.weight', 'quant_conv.weight',
+             'decoder.conv_in.weight', 'decoder.up_0_block_1.conv2.weight',
+             'decoder.conv_out.weight')
+    batches = [torch.from_numpy(frames[i * CB_COMPARE_B:(i + 1) * CB_COMPARE_B])
+               for i in range(CB_COMPARE_STEPS)]
+    runs = {}
+    for device, dtype in (('cuda', torch.bfloat16), ('cpu', torch.float32)):
+        model, state = init_codebook_state(config, torch.Generator().manual_seed(1), dtype,
+                                           device, remat=device == 'cuda')
+        where = next(model.parameters()).device
+        step = make_codebook_train_step(model, config, copy.deepcopy(lpips).to(where))
+        params = dict(model.named_parameters())
+        initial = {name: params[name].detach().cpu().clone() for name in names}
+        with torch.no_grad():
+            _, codes = model.encode(normalize_images(batches[0].to(where)))
+        t0 = time.perf_counter()
+        state, metrics = step(state, batches[0].to(where))
+        losses = [metrics['total_loss'].item()]
+        first_step_s = time.perf_counter() - t0
+        grads = {name: params[name].grad.detach().cpu().clone() for name in names}
+        embeddings = model.quantizer.embeddings.detach().cpu().clone()
+        for batch in batches[1:]:
+            state, metrics = step(state, batch.to(where))
+            losses.append(metrics['total_loss'].item())
+        moved = {name: params[name].detach().cpu() - initial[name] for name in names}
+        runs[device] = (losses, grads, moved, codes.cpu(), embeddings, first_step_s,
+                        model.quantizer.counter.item())
+        del model, state, params
+    torch.cuda.empty_cache()
+
+    def cosine(a, b):
+        a, b = a.double().flatten(), b.double().flatten()
+        return (a @ b / (a.norm() * b.norm())).item()
+
+    card, cpu = runs['cuda'], runs['cpu']
+    loss_rel = abs(card[0][0] - cpu[0][0]) / abs(cpu[0][0])
+    grad_cosine = {name: cosine(card[1][name], cpu[1][name]) for name in names}
+    update_cosine = {name: cosine(card[2][name], cpu[2][name]) for name in names}
+    # a latent whose code differs moves both codes' EMA columns: those are
+    # left out; every other column is an average over the same latents
+    differ = card[3] != cpu[3]
+    moved_codes = torch.unique(torch.cat([card[3][differ], cpu[3][differ]]))
+    keep = torch.ones(card[4].shape[1], dtype=torch.bool)
+    keep[moved_codes] = False
+    ema_rel = ((card[4][:, keep] - cpu[4][:, keep]).abs().max()
+               / cpu[4][:, keep].abs().max()).item()
+    codes_equal = 1.0 - differ.float().mean().item()
+    emit({'phase': 'codebook_card_vs_cpu', 'batch': CB_COMPARE_B, 'steps': CB_COMPARE_STEPS,
+          'card_losses': card[0], 'cpu_losses': cpu[0], 'loss_rel_err': loss_rel,
+          'loss_tol': TRAIN_LOSS_TOL, 'grad_cosine': grad_cosine, 'grad_cosine_min': GRAD_COSINE,
+          'update_cosine': update_cosine, 'update_cosine_min': UPDATE_COSINE,
+          'codes_equal_fraction': codes_equal, 'codes_equal_min': CB_CODES_EQUAL,
+          'ema_columns_compared': int(keep.sum()), 'ema_rel_err': ema_rel, 'ema_tol': EMA_TOL,
+          'counters': [card[6], cpu[6]], 'card_first_step_s': card[5],
+          'cpu_first_step_s': cpu[5]}, log)
+    check(all(np.isfinite(card[0])), f'non-finite card losses {card[0]}')
+    check(loss_rel <= TRAIN_LOSS_TOL, f'codebook: card loss differs from CPU by {loss_rel}')
+    for name in names:
+        check(grad_cosine[name] >= GRAD_COSINE,
+              f'codebook {name}: gradient cosine {grad_cosine[name]} < {GRAD_COSINE}')
+        check(update_cosine[name] >= UPDATE_COSINE,
+              f'codebook {name}: update cosine {update_cosine[name]} < {UPDATE_COSINE}')
+    check(codes_equal >= CB_CODES_EQUAL, f'codebook: {codes_equal} of the codes equal')
+    check(ema_rel <= EMA_TOL, f'codebook: EMA embeddings differ by {ema_rel} (relative)')
+    check(card[6] == cpu[6] == CB_COMPARE_STEPS, f'EMA counters {card[6]}, {cpu[6]}')
+
+
+def generate_codes_check(data, job, out, log, card):
+    """Phase 9 item 4: generate_codes at CB_BATCH over every shard, timed,
+    its device encode time by CUDA events; then its codes against a direct
+    encode of each shard's frames in the same batches (the tail padded)."""
+    from viewformer_tpu_torch.commands import generate_codes as gc
+    from viewformer_tpu_torch.config import load_config
+    from viewformer_tpu_torch.data.dataset import get_dataset_info, read_dataset
+    from viewformer_tpu_torch.models import load_model
+    from viewformer_tpu_torch.ops.image import normalize_images
+
+    encodes, loads = [], []
+    dispatch, load = gc.LatentCodeTransformer._dispatch, gc.load_model
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return out
+
+    def timed_dispatch(self, frames):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dispatch(self, frames)
+        end.record()
+        encodes.append((start, end, len(frames)))
+        return out
+
+    gc.LatentCodeTransformer._dispatch, gc.load_model = timed_dispatch, timed_load
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gc.generate_codes(data, out, job, batch_size=CB_BATCH, progress=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        gc.LatentCodeTransformer._dispatch, gc.load_model = dispatch, load
+    t0 = time.perf_counter()
+    info = get_dataset_info(data)
+    frames_total = sum(len(item['frames']) for split in CB_SEQUENCES
+                       for item in read_dataset(data, split))
+    read_decode_s = time.perf_counter() - t0
+    encode_ms = sum(a.elapsed_time(b) for a, b, _ in encodes)
+
+    codebook = load_model(job, torch.bfloat16, 'cuda')
+    mismatched, padded = 0, 0
+    for split in CB_SEQUENCES:
+        for shard in range(1, info[f'{split}_size'] + 1):
+            frames = np.concatenate([item['frames'] for item in
+                                     read_dataset(data, split, shards=[shard])])
+            written = np.concatenate([item['codes'] for item in
+                                      read_dataset(out, split, shards=[shard])])
+            direct = []
+            for i in range(0, len(frames), CB_BATCH):
+                batch = frames[i:i + CB_BATCH]
+                n = len(batch)
+                if n < CB_BATCH:
+                    padded += 1
+                    batch = np.concatenate([batch, np.zeros((CB_BATCH - n,) + batch.shape[1:],
+                                                            batch.dtype)])
+                with torch.inference_mode():
+                    _, codes = codebook.encode(normalize_images(
+                        torch.from_numpy(batch).to(codebook.quant_conv.weight.device)))
+                direct.append(codes[:n].cpu().numpy())
+            direct = np.concatenate(direct)
+            check(written.shape == direct.shape, f'{split} shard {shard}: codes {written.shape}')
+            mismatched += int((written != direct).sum())
+    out_info = get_dataset_info(out)
+    emit({'phase': 'generate_codes', 'card': card, 'batch': CB_BATCH, 'frames': frames_total,
+          'encode_calls': len(encodes), 'padded_batches': padded, 'run_s': run_s,
+          'frames_per_s': frames_total / run_s, 'load_model_s': loads[0],
+          'frames_per_s_after_load': frames_total / (run_s - loads[0]),
+          'encode_device_ms': encode_ms,
+          'read_and_decode_s': read_decode_s, 'mismatched_codes': mismatched,
+          'token_image_size': out_info['token_image_size']}, log)
+    print(f'generate_codes: {frames_total / run_s:.1f} frames/s at batch {CB_BATCH} '
+          f'(load_model {loads[0]:.3f} s and device encode {encode_ms / 1000:.3f} s of '
+          f'{run_s:.3f} s; reading and decoding the frames alone {read_decode_s:.3f} s) '
+          f'({card})', flush=True)
+    check(mismatched == 0, f'generate_codes: {mismatched} codes differ from a direct encode')
+    check(padded >= 1, 'generate_codes: no tail batch was padded')
+    check(out_info['token_image_size'] == SIZE // load_config(job).stride,
+          f'token_image_size {out_info}')
+    del codebook
+    torch.cuda.empty_cache()
+
+
+def codebook_pipeline(ac, log, card):
+    """Phase 9. Returns the launch counts of the pipeline."""
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
+    from viewformer_tpu_torch.data.loaders import build
+    from viewformer_tpu_torch.evaluate.codebook import evaluate_codebook
+    from viewformer_tpu_torch.train import checkpoint as ckpt_mod
+    from viewformer_tpu_torch.train import codebook as cb
+    from viewformer_tpu_torch.train import transformer as ttt
+
+    config = VQGANConfig()
+    check((config.ch, config.ch_mult, config.n_embed, config.image_size)
+          == (128, [1, 1, 2, 2, 4], 1024, SIZE), f'VQGANConfig() is {config}')
+    lpips = random_lpips()
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_codebook_')
+    try:
+        t0 = time.perf_counter()
+        data = codebook_dataset(os.path.join(tmp, 'images'))
+        dataset_s = time.perf_counter() - t0
+        job = os.path.join(tmp, 'codebook')
+
+        # the main path: train_codebook, with CUDA events at each step's end
+        ends, make, load = [], cb.make_codebook_train_step, cb.load_lpips
+
+        def instrumented(*args):
+            step = make(*args)
+
+            def run(state, batch):
+                out = step(state, batch)
+                end = torch.cuda.Event(enable_timing=True)
+                end.record()
+                ends.append(end)
+                return out
+            return run
+
+        cb.make_codebook_train_step, cb.load_lpips = instrumented, lambda net='vgg': lpips
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ac.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            model, state = cb.train_codebook(
+                config, data, job, total_steps=CB_STEPS, epochs=CB_EPOCHS, batch_size=CB_BATCH,
+                accumulate_grad_batches=CB_ACCUMULATE, num_val_batches=1, log_every=1,
+                progress=False, profile_batch=0)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        finally:
+            cb.make_codebook_train_step, cb.load_lpips = make, load
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        counter = model.quantizer.counter.item()
+        check(next(model.parameters()).dtype == torch.float32 and model.dtype == torch.bfloat16,
+              'train_codebook: f32 master weights, bf16 compute')
+        del model, state
+        torch.cuda.empty_cache()
+        metrics = read_metrics(job)
+        records = [metrics[step, 'train'] for step in range(1, CB_STEPS + 1)]
+        vals = [metrics[step, 'val'] for step in sorted(s for s, kind in metrics
+                                                          if kind == 'val')]
+        gaps = [a.elapsed_time(b) / 1000 for a, b in zip(ends, ends[1:])]
+
+        # the bare step and a split of one step by stage
+        frames = codebook_frames(data, CB_BATCH, split='train')
+        batch = torch.from_numpy(frames).cuda()
+        bare_model, bare_state = cb.init_codebook_state(config, torch.Generator().manual_seed(3))
+        bare_step = cb.make_codebook_train_step(bare_model, config,
+                                                lpips.to(next(bare_model.parameters()).device))
+        bare_step(bare_state, batch)
+        bare_ms = time_ms(lambda: bare_step(bare_state, batch), n=3)
+        del bare_model, bare_state, bare_step
+        torch.cuda.empty_cache()
+        split = codebook_step_split(config, lpips, batch)
+        del batch
+
+        codebook_card_vs_cpu(config, lpips, frames, log)
+        codes = os.path.join(tmp, 'codes')
+        generate_codes_check(data, job, codes, log, card)
+
+        # train the transformer on the generated codes, then evaluate the codebook
+        tconfig = MIGTConfig()
+        record, restore = instrument_loop(ac, ttt, ckpt_mod)
+        try:
+            _, tstate = ttt.train_transformer(
+                tconfig, codes, os.path.join(tmp, 'transformer'), codebook_path=job,
+                total_steps=PIPE_STEPS, epochs=1, batch_size=PIPE_TRAIN_B, log_every=1,
+                progress=False, profile_batch=0)
+        finally:
+            restore()
+        check(tstate.step == PIPE_STEPS, f'train_transformer ended at step {tstate.step}')
+        del tstate
+        torch.cuda.empty_cache()
+        tmetrics = read_metrics(os.path.join(tmp, 'transformer'))
+        before = counts(ac)
+        result = evaluate_codebook(build('dataset', path=data, split='test'), job,
+                                   os.path.join(tmp, 'evaluate'), batch_size=CB_EVAL_IMAGES,
+                                   num_eval_images=CB_EVAL_IMAGES, num_store_images=0,
+                                   progress=False)
+        eval_launches = {name: n - before[name] for name, n in counts(ac).items()}
+        launches = counts(ac)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    per_train = only(ac, block_causal_attention_dropout_fwd=2 * tconfig.n_layer,
+                     branch_attention_dropout_fwd=2 * tconfig.n_layer,
+                     block_causal_attention_dropout_bwd=tconfig.n_layer - 1,
+                     branch_attention_dropout_bwd=tconfig.n_layer)
+    per_eval = only(ac, block_causal_attention_fwd=tconfig.n_layer,
+                    branch_attention_fwd=tconfig.n_layer)
+    losses = [r['train/total_loss'] for r in records]
+    step_s = statistics.median(gaps)
+    emit({'phase': 'codebook_pipeline', 'card': card, 'image_size': SIZE,
+          'sequences': CB_SEQUENCES, 'frames_per_sequence': CB_FRAMES, 'batch': CB_BATCH,
+          'accumulate_grad_batches': CB_ACCUMULATE, 'steps': CB_STEPS, 'epochs': CB_EPOCHS,
+          'lpips': 'random weights, seed 0 (not calibrated)', 'dataset_s': dataset_s,
+          'train_s': train_s, 'step_end_gaps_s': gaps, 'step_s_median': step_s,
+          'images_per_s': CB_BATCH * CB_ACCUMULATE / step_s, 'bare_step_s': bare_ms / 1000,
+          'bare_images_per_s': CB_BATCH / (bare_ms / 1000), 'step_split_ms': split,
+          'max_memory_allocated_gb': peak_gb, 'ema_counter': counter,
+          'train_records': records, 'val_records': vals,
+          'transformer_records': {f'{s} {k}': v for (s, k), v in tmetrics.items()},
+          'transformer_launches_per_train_step': [r['launches'] for r in record['train']],
+          'transformer_launches_per_eval_step': [r['launches'] for r in record['eval']],
+          'expected_per_train_step': per_train, 'expected_per_eval_step': per_eval,
+          'evaluate_codebook': result, 'evaluate_codebook_launches': eval_launches,
+          'launches': launches}, log)
+    print(f'codebook_pipeline: step {step_s:.4f} s (median gap), bare {bare_ms / 1000:.4f} s, '
+          f'{CB_BATCH * CB_ACCUMULATE / step_s:.1f} images/s, peak {peak_gb:.2f} GB, split '
+          + ', '.join(f'{k} {v:.1f} ms' for k, v in split.items()) + f' ({card})', flush=True)
+    check(counter == CB_STEPS, f'EMA counter {counter} after {CB_STEPS} steps')
+    for r in records:
+        for key in ('total_loss', 'rec_loss', 'quant_loss', 'p_loss', 'perplexity'):
+            check(np.isfinite(r[f'train/{key}']), f'codebook step {r["step"]}: {key} not finite')
+    check(records[0]['train/p_loss'] > 0, 'codebook: the LPIPS term did not run')
+    check(len(vals) == CB_EPOCHS and all(np.isfinite(v['val/psnr']) for v in vals),
+          f'codebook validation records {vals}')
+    check(all(np.isfinite(tmetrics[s, 'train']['train/loss']) for s in range(1, PIPE_STEPS + 1)),
+          'transformer on the generated codes: non-finite loss')
+    check(np.isfinite(tmetrics[PIPE_STEPS, 'val'].get('val/psnr', np.nan)),
+          'transformer on the generated codes: no finite val/psnr')
+    check(len(record['train']) == PIPE_STEPS and len(record['eval']) == 1,
+          f'{len(record["train"])} train and {len(record["eval"])} eval steps')
+    for i, r in enumerate(record['train'], 1):
+        check(r['launches'] == per_train, f'pipeline train step {i} launches {r["launches"]}')
+    for r in record['eval']:
+        check(r['launches'] == per_eval, f'pipeline eval step launches {r["launches"]}')
+    check(all(v == 0 for v in eval_launches.values()), f'evaluate codebook {eval_launches}')
+    check(all(launches[name] == PIPE_STEPS * per_train[name] + per_eval[name]
+              for name in launches), f'codebook pipeline launch counts {launches}')
+    check(np.isfinite(result['psnr']) and result['lpips'] is None,
+          f'evaluate codebook {result}')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -1538,6 +1972,8 @@ def main():
     launches['train_loop'] = train_loop(ac, config, log, card)
     torch.cuda.empty_cache()
     launches.update(serve_and_evaluate(ac, log, card))
+    torch.cuda.empty_cache()
+    launches['codebook_pipeline'] = codebook_pipeline(ac, log, card)
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

@@ -106,8 +106,19 @@ def test_shards_read_across_packages(tmp_path, dims):
             cameras = tds.fix_legacy_gqn_cameras(cameras)
         np.testing.assert_allclose(cameras, item['cameras'], atol=POSE_TOL)
         np.testing.assert_array_equal(example['codes'].reshape(-1, 2, 2), item['codes'])
-    with pytest.raises(NotImplementedError):
-        tds.write_shard(str(tmp_path / 'frames'), [], ['frames'])
+    # frames too: JPEG for RGB, PNG for RGBA, NCHW taken as NHWC, bytes as they are
+    rng = np.random.RandomState(4)
+    sequences = [{'frames': rng.randint(0, 256, (3, 8, 8, 3)).astype(np.uint8),
+                  'cameras': rng.randn(3, 7)},
+                 {'frames': rng.randint(0, 256, (2, 4, 8, 8)).astype(np.uint8),
+                  'cameras': rng.randn(2, 7)},
+                 {'frames': [b'\xff\xd8 not decoded', b'raw'], 'cameras': rng.randn(2, 7)}]
+    for writer in (tds, jds):
+        writer.write_shard(str(tmp_path / writer.__name__), sequences, ['cameras', 'frames'])
+    for ext in ('.tfrecord', '.index'):
+        with open(str(tmp_path / tds.__name__) + ext, 'rb') as a, \
+                open(str(tmp_path / jds.__name__) + ext, 'rb') as b:
+            assert a.read() == b.read(), ext
 
 
 def _batches(loader, limit=1000):

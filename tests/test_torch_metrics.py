@@ -7,6 +7,7 @@ import torch
 
 from viewformer_tpu.utils import geometry as jgeometry
 from viewformer_tpu.utils import metrics as jmetrics
+from viewformer_tpu_torch.models import lpips as tlpips
 from viewformer_tpu_torch.utils import geometry as tgeometry
 from viewformer_tpu_torch.utils import metrics as tmetrics
 
@@ -92,8 +93,10 @@ def test_mean_and_median(allow_nan):
     assert tmed.result() == jmed.result() == 4.0
 
 
-def test_lpips_is_loud_and_null(capsys):
-    tmetrics._warn_lpips_unavailable.cache_clear()
+def test_lpips_is_loud_and_null(capsys, tmp_path, monkeypatch):
+    """Without weights at any of the searched paths: null, one warning."""
+    monkeypatch.setattr(tlpips, '_WEIGHT_PATHS', [str(tmp_path / 'lpips_vgg.npz')])
+    tlpips._warn_unavailable.cache_clear()
     metric = tmetrics.LPIPSMetric('vgg', name='lpips')
     tmetrics.LPIPSMetric('vgg', name='lpips')
     assert not metric.available and metric.name == 'lpips'

@@ -1,9 +1,10 @@
 """The port's serving slice end to end against the JAX package, its
 independence from the JAX package (serving, train steps without and with
 dropout, the reader, checkpoints and train_transformer with a resume, a
-serving session, the colors loader and the three evaluators, with
-viewformer_tpu, jax and flax blocked), and chip_smoke.py's refusal to run
-without a card."""
+serving session, the colors loader and the three evaluators, and the tiny
+pipeline dataset generate -> train codebook -> generate-codes -> train
+transformer -> evaluate codebook through the CLI, with viewformer_tpu, jax
+and flax blocked), and chip_smoke.py's refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -160,6 +161,29 @@ result = evaluate_transformer_multictx(loader, jobs['t'], jobs['c'], os.path.joi
 assert list(result) == ['ctx01', 'ctx02'] and np.isfinite(result['ctx02']['psnr'])
 result = evaluate_codebook(loader, jobs['c'], os.path.join(out, 'e3'), **kwargs)
 assert np.isfinite(result['ssim'])
+import json
+from viewformer_tpu_torch import cli
+from viewformer_tpu_torch.models import lpips
+lpips._WEIGHT_PATHS = [os.path.join(out, 'no-lpips.npz')]
+images, cjob, codes, tjob = (os.path.join(out, n) for n in ('images', 'cjob', 'codes', 'tjob'))
+cli.main(['dataset', 'generate', '--loader', 'colors', '--loader-num-sequences', '2',
+    '--loader-sequence-size', '5', '--image-size', '16', '--output',
+    os.path.join(images, 'colors'), '--max-sequences-per-shard', '1'])
+cli.main(['train', 'codebook', '--dataset', images, '--job-dir', cjob, '--device', 'cpu',
+    '--fp32', '--total-steps', '2', '--epochs', '1', '--batch-size', '5', '--ch', '32',
+    '--num-res-blocks', '1', '--n-embed', '16', '--embed-dim', '8', '--image-size', '16'])
+cli.main(['generate-codes', '--dataset', images, '--output', codes, '--model', cjob,
+    '--device', 'cpu', '--fp32', '--batch-size', '4'])
+cli.main(['train', 'transformer', '--dataset', codes, '--codebook-model', cjob, '--job-dir',
+    tjob, '--device', 'cpu', '--fp32', '--total-steps', '2', '--epochs', '1',
+    '--batch-size', '2', '--d-model', '32', '--n-layer', '2', '--n-head', '2',
+    '--sequence-size', '5', '--token-image-size', '1', '--n-loss-skip', '1'])
+assert sorted(os.listdir(os.path.join(tjob, 'last'))) == ['2.pt']
+cli.main(['evaluate', 'codebook', '--loader', 'dataset', '--loader-path', images,
+    '--codebook-model', cjob, '--job-dir', os.path.join(out, 'e4'), '--device', 'cpu',
+    '--fp32', '--num-store-images', '0', '--batch-size', '5', '--num-eval-images', '5'])
+result = json.load(open(os.path.join(out, 'e4', 'results.json')))
+assert result['lpips'] is None and np.isfinite(result['psnr'])
 assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
                if sys.modules[m])
 print('ran without jax and viewformer_tpu')

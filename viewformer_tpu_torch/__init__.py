@@ -13,6 +13,10 @@ backward, are hand-written CUDA (csrc/):
   evaluate.codebook.evaluate_codebook over the loaders of data.loaders
   (colors, dataset), with the metrics of utils.metrics; `python -m
   viewformer_tpu_torch evaluate transformer|transformer-multictx|codebook`;
+- the codebook stage: image datasets (`python -m viewformer_tpu_torch
+  dataset generate`), codebook training (train.codebook.train_codebook:
+  the EMA quantizer, LPIPS, `train codebook`) and the token datasets of
+  commands.generate_codes (`generate-codes`);
 - transformer training (with and without dropout; the train step, and the
   loop train_transformer with its token-dataset reader, checkpoints and
   CLI, `python -m viewformer_tpu_torch train ...`).

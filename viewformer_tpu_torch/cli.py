@@ -1,5 +1,8 @@
 """The port's command line (`python -m viewformer_tpu_torch`), on argparse:
 
+  dataset generate              write a loader's sequences as an image dataset
+  train codebook                train the VQ-GAN codebook on an image dataset
+  generate-codes                encode an image dataset into a token dataset
   train transformer             train MIGT on a token dataset
   train finetune-transformer    continue a trained transformer's job
   evaluate transformer          novel-view synthesis and localization metrics
@@ -9,18 +12,20 @@
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
 without the TPU-only --steps-per-call, --seq-parallelism and
---force-wide-scan, with --remat-policy full only, and with --device (default
-cuda). The evaluate commands take `--loader NAME` (default dataset) and pass
-every `--loader-<param> VALUE` (or `--loader-<param>=VALUE`) to the loader
-as <param>=VALUE, parsed as a bool, int or float where it reads as one; they
-compute in bf16 (the card's kernels take bf16) unless given --fp32, as serve
-does. The other commands are not ported yet.
+--force-wide-scan, with --remat-policy full only, without --wandb for the
+codebook, and with --device (default cuda) where a model runs. `dataset
+generate` and the evaluate commands take `--loader NAME` and pass every
+`--loader-<param> VALUE` (or `--loader-<param>=VALUE`) to the loader as
+<param>=VALUE, parsed as a bool, int or float where it reads as one. The
+evaluate commands and generate-codes compute in bf16 (the card's kernels
+take bf16) unless given --fp32, as serve does. The other commands of the
+JAX package are not ported yet.
 """
 import argparse
 import dataclasses
 import sys
 
-from .config import MIGTConfig, load_config
+from .config import MIGTConfig, VQGANConfig, load_config
 from .utils.schedules import Schedule
 
 # MIGTConfig fields settable from `train transformer`: (flag, type)
@@ -30,6 +35,11 @@ _TRANSFORMER_OPTIONS = (
     ('augment-poses', str), ('localization-weight', str), ('pose-multiplier', float),
     ('random-pose-multiplier', float), ('label-smoothing', float), ('weight-decay', float),
     ('gradient-clip-val', float), ('dropout', float))
+# VQGANConfig fields settable from `train codebook`
+_CODEBOOK_OPTIONS = (
+    ('learning-rate', float), ('n-embed', int), ('embed-dim', int), ('image-size', int),
+    ('ch', int), ('num-res-blocks', int), ('gradient-clip-val', float),
+    ('perceptual-weight', float))
 # and from `train finetune-transformer`
 _FINETUNE_OPTIONS = (
     ('learning-rate', float), ('pose-multiplier', float), ('localization-weight', str),
@@ -106,8 +116,58 @@ def _add_evaluate_common(parser, transformer=True):
 def _parser():
     parser = argparse.ArgumentParser(prog='python -m viewformer_tpu_torch')
     groups = parser.add_subparsers(dest='group', required=True)
+
+    dataset = groups.add_parser('dataset', help='datasets').add_subparsers(dest='command',
+                                                                          required=True)
+    generate = dataset.add_parser('generate',
+                                  help='Write TFRecord shards from a sequence loader.')
+    generate.add_argument('--loader', dest='loader_name', required=True)
+    generate.add_argument('--output', required=True,
+                          help='<directory>/<dataset name> of the shards')
+    generate.add_argument('--split', dest='splits', action='append', default=None,
+                          help='a split to write (repeatable; default train and test)')
+    generate.add_argument('--max-images-per-shard', type=int, default=None)
+    generate.add_argument('--max-sequences-per-shard', type=int, default=None)
+    generate.add_argument('--image-size', type=int, default=None)
+    generate.add_argument('--shuffle', action=argparse.BooleanOptionalAction, default=False)
+    generate.add_argument('--shards', default=None, help='SplitIndices subset, e.g. "1:5"')
+    generate.add_argument('--allow-incompatible-config', action='store_true')
+    generate.set_defaults(run=_dataset_generate)
+
+    generate_codes = groups.add_parser('generate-codes',
+                                       help='Encode an image dataset into codebook tokens.')
+    generate_codes.add_argument('--dataset', required=True)
+    generate_codes.add_argument('--output', required=True)
+    generate_codes.add_argument('--model', required=True, help='job dir of the codebook')
+    generate_codes.add_argument('--batch-size', type=int, default=None)
+    generate_codes.add_argument('--shards', default=None)
+    generate_codes.add_argument('--split', dest='splits', action='append', default=None)
+    generate_codes.add_argument('--fp32', action='store_true',
+                                help='encode in f32, not bf16')
+    generate_codes.add_argument('--device', default='cuda',
+                                help="where to encode: a CUDA device (default) or 'cpu'")
+    generate_codes.set_defaults(run=_generate_codes)
+
     train = groups.add_parser('train', help='training').add_subparsers(dest='command',
                                                                         required=True)
+    codebook = train.add_parser('codebook', help='Train the VQ-GAN codebook (stage 1).')
+    codebook.add_argument('--dataset', dest='dataset_path', required=True)
+    codebook.add_argument('--job-dir', required=True)
+    codebook.add_argument('--total-steps', type=int, default=None)
+    codebook.add_argument('--epochs', type=int, default=100)
+    codebook.add_argument('--batch-size', type=int, default=None)
+    for flag, kind in _CODEBOOK_OPTIONS:
+        codebook.add_argument(f'--{flag}', type=kind, default=None)
+    codebook.add_argument('--accumulate-grad-batches', type=int, default=1)
+    codebook.add_argument('--log-every', type=int, default=50)
+    codebook.add_argument('--checkpoint-every', type=int, default=None,
+                          help='extra mid-epoch rolling-last saves every N steps')
+    codebook.add_argument('--fp32', action='store_true', help='compute in f32, not bf16')
+    codebook.add_argument('--seed', type=int, default=42, help='init and data-order seed')
+    codebook.add_argument('--resume', action=argparse.BooleanOptionalAction, default=True)
+    codebook.add_argument('--device', default='cuda',
+                          help="where to train: a CUDA device (default) or 'cpu'")
+    codebook.set_defaults(run=_train_codebook)
 
     transformer = train.add_parser('transformer', help='Train the MIGT transformer (stage 2).')
     _add_common(transformer)
@@ -167,6 +227,46 @@ def _parser():
                        help="where to serve: a CUDA device (default) or 'cpu'")
     serve.set_defaults(run=_serve)
     return parser
+
+
+def _dataset_generate(args):
+    from .data.dataset import generate_dataset_from_loader
+    from .data.loaders import get_loader
+    for split in args.splits or ['train', 'test']:
+        kwargs = dict(args.loader_kwargs)
+        kwargs.setdefault('split', split)
+        if args.shuffle:
+            kwargs['shuffle'] = True
+        if args.image_size is not None:
+            kwargs['image_size'] = args.image_size
+        generate_dataset_from_loader(
+            get_loader(args.loader_name)(**kwargs), split, args.output,
+            max_images_per_shard=args.max_images_per_shard,
+            max_sequences_per_shard=args.max_sequences_per_shard, shards=args.shards,
+            allow_incompatible_config=args.allow_incompatible_config)
+
+
+def _train_codebook(args):
+    from .train.codebook import train_codebook
+    options = {_field(flag): getattr(args, _field(flag)) for flag, _ in _CODEBOOK_OPTIONS}
+    config = VQGANConfig.from_dict({k: v for k, v in options.items() if v is not None})
+    if args.total_steps:
+        config.total_steps = args.total_steps
+    if args.batch_size:
+        config.batch_size = args.batch_size
+    train_codebook(config, args.dataset_path, args.job_dir, total_steps=config.total_steps,
+                   epochs=args.epochs, batch_size=config.batch_size,
+                   accumulate_grad_batches=args.accumulate_grad_batches,
+                   log_every=args.log_every, checkpoint_every=args.checkpoint_every,
+                   seed=args.seed, resume=args.resume, use_bf16=not args.fp32,
+                   device=args.device)
+
+
+def _generate_codes(args):
+    from .commands.generate_codes import generate_codes
+    generate_codes(args.dataset, args.output, args.model, shards=args.shards,
+                   batch_size=args.batch_size, splits=args.splits,
+                   use_bfloat16=not args.fp32, device=args.device)
 
 
 def _train_transformer(args):
@@ -258,7 +358,7 @@ def _serve(args):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     loader_kwargs = {}
-    if argv[:1] == ['evaluate']:
+    if argv[:1] in (['evaluate'], ['dataset']):
         argv, loader_kwargs = _split_loader_args(argv)
     args = _parser().parse_args(argv)
     args.loader_kwargs = loader_kwargs

@@ -1,21 +1,26 @@
-"""The token-dataset reader for transformer training (the port's own copy of
-load_token_dataset in viewformer_tpu/data/pipeline.py, with the same seeds,
-so it yields the JAX package's batches in the JAX package's order).
+"""The training readers: load_image_dataset (frames, for the codebook) and
+load_token_dataset (cameras and codes, for the transformer), the port's own
+copies of viewformer_tpu/data/pipeline.py's, with the same seeds, so they
+yield the JAX package's batches in the JAX package's order.
 
-A numpy iterator pipeline: per-process shard assignment, a two-level
-round-robin interleave (records across shards, sequence chunks across open
-environments), a local shuffle buffer, and a background prefetch thread that
-hands ready numpy batches to the train loop, with a resume cursor.
+Numpy iterator pipelines: per-process shard assignment, round-robin
+interleaves (records across shards; for tokens also sequence chunks across
+open environments), a local shuffle buffer, a thread pool that decodes
+frames with Pillow, and a background prefetch thread that hands ready numpy
+batches to the train loop, with a resume cursor.
 """
+import collections
 import inspect
 import os
 import queue
 import random
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from ..ops.image import decode_image
 from .dataset import fix_legacy_gqn_cameras, get_dataset_info
 from .tfrecord import decode_example, read_records
 
@@ -81,6 +86,7 @@ def _interleave(factories, cycle_length):
 # and environment-level width (the reference's cycle_length=8).
 INTERLEAVE_SHARDS = 4
 INTERLEAVE_ENVIRONMENTS = 8
+DECODE_THREADS = 8
 
 
 def _local_shuffle(iterator, buffer_size, rng):
@@ -147,6 +153,18 @@ class Prefetcher:
                 pass
 
 
+def _ordered_map(pool, fn, items, window):
+    """pool.map(fn, items) with at most `window` calls submitted ahead of the
+    one yielded, so a long stream is neither read nor held whole."""
+    pending = collections.deque()
+    for item in items:
+        pending.append(pool.submit(fn, item))
+        if len(pending) >= window:
+            yield pending.popleft().result()
+    while pending:
+        yield pending.popleft().result()
+
+
 def _resumable_epochs(epoch_iterator, repeat, start_state):
     """Per-epoch iterators -> a factory of one (state, batch) stream with an
     {'epoch', 'batch'} resume cursor. Resuming replays the cursor's epoch
@@ -169,6 +187,66 @@ def _resumable_epochs(epoch_iterator, repeat, start_state):
                 return
 
     return iterator
+
+
+def load_image_dataset(path, batch_size, image_size, split='train', repeat=None, shuffle=True,
+                       seed=0, start_state=None, output_dtype='float32', buffer_size=2):
+    """A Prefetcher of frame batches [batch_size, H, W, C] for codebook
+    training: f32 in [-1, 1], or with output_dtype='uint8' the raw bytes
+    (the train step maps them to [-1, 1] on the device). Frames whose
+    channel count is not the dataset's are skipped.
+
+    Each epoch reads this process's shards (in a seeded order when
+    shuffling), interleaves their records INTERLEAVE_SHARDS at a time,
+    shuffles the frames in a 1000-frame buffer and decodes them on
+    DECODE_THREADS threads, at most two batches of frames ahead of the
+    batch being filled. repeat: None one epoch, -1 forever, else that many
+    epochs. start_state: a Prefetcher.state cursor to resume from;
+    buffer_size: batches made ahead."""
+    if output_dtype not in ('float32', 'uint8'):
+        raise ValueError(f"output_dtype must be 'float32' or 'uint8', got {output_dtype!r}")
+    info, paths = _shard_paths(path, split)
+    if info['frame_size'] != image_size:
+        raise ValueError(f'Dataset has a different image size: {info["frame_size"]} != '
+                         f'{image_size}')
+    host_id, num_hosts = _host_info()
+    paths = _select_host_shards(paths, host_id, num_hosts)
+    channels = info.get('num_image_channels', 3)
+
+    def epoch_iterator(epoch):
+        rng = random.Random((seed * 2654435761 + epoch) & 0xFFFFFFFF)
+        epoch_paths = list(paths)
+        if shuffle:
+            rng.shuffle(epoch_paths)
+
+        def shard_stream(shard):
+            return lambda: (decode_example(payload)['frames'] for payload in read_records(shard))
+
+        def raw_frames():
+            for frame_list in _interleave(map(shard_stream, epoch_paths), INTERLEAVE_SHARDS):
+                yield from frame_list
+
+        frames = raw_frames()
+        if shuffle:
+            frames = _local_shuffle(frames, 1000, rng)
+        pool = ThreadPoolExecutor(DECODE_THREADS)
+        try:
+            batch = []
+            for img in _ordered_map(pool, decode_image, frames, 2 * batch_size):
+                if img.shape[-1] != channels:
+                    continue
+                batch.append(img)
+                if len(batch) == batch_size:
+                    if output_dtype == 'uint8':
+                        yield np.stack(batch, 0)
+                    else:
+                        yield np.stack(batch, 0).astype(np.float32) / 255.0 * 2.0 - 1.0
+                    batch = []
+        finally:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+    return Prefetcher(_resumable_epochs(epoch_iterator, repeat, start_state),
+                      buffer_size=buffer_size, track_state=True)
 
 
 def load_token_dataset(path, batch_size, sequence_size, token_image_size,

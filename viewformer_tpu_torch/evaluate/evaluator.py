@@ -21,7 +21,7 @@ class Evaluator:
             M.CameraPositionError('loc-dist'),
             M.CameraOrientationMedian('loc-angle-med'),
             M.CameraPositionMedian('loc-dist-med')]
-        # lpips is always in the report, as null: the port has no LPIPS
+        # lpips is reported as null when its weights are absent
         # (utils/metrics.LPIPSMetric)
         self._image_generation_metrics = [
             M.MeanSquaredError('mse'),

@@ -30,8 +30,8 @@ class AutoModel:
 
 
 def load_model(job_dir, dtype=torch.float32, device='cuda', **config_overrides):
-    """The model of a job dir written by the port's CheckpointManager:
-    config.json (with `config_overrides` set on it, e.g. pose_multiplier),
+    """The model of a job dir written by the port's CheckpointManager
+    (train_transformer, train_codebook): config.json (with `config_overrides` set on it, e.g. pose_multiplier),
     then the weights of best/ or else last/ (the 'model' entry of the saved
     state), as an MIGT or a VQGAN in `dtype` on `device`, in eval mode. In
     bf16 the f32 islands stay f32 (MIGT's pose MLP and pose head, the

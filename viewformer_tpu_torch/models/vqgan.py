@@ -1,25 +1,38 @@
-"""VQ-GAN codebook model, inference half (port of viewformer_tpu/models/vqgan.py).
+"""VQ-GAN codebook model (port of viewformer_tpu/models/vqgan.py).
 
 The public methods take and return NHWC like the JAX package; inside, the
-towers run NCHW views of NHWC memory (channels_last). Convolutions run in the
-model's dtype (bf16 on the card); GroupNorm statistics, the codebook and the
-code search stay f32. Module names equal the JAX parameter names, so the
-weight bridge (utils/convert.py) maps them one to one. The EMA codebook
-statistics are carried as buffers for the bridge; nothing here updates them.
+towers run NCHW views of NHWC memory (channels_last). Convolutions compute
+in the model's dtype (bf16 on the card) from parameters stored in
+param_dtype (default: dtype), as flax's nn.Conv(dtype=...) with f32
+params; GroupNorm parameters and statistics, the codebook and the code
+search stay f32. Module names equal the JAX parameter names, so the weight
+bridge (utils/convert.py) maps them one to one. The EMA codebook state is
+the Quantizer's buffers; forward(x, training=True) and encode(x,
+training=True) update it (ops/quantizer.quantize_ema). remat=True recomputes
+each ResnetBlock and AttnBlock in the backward (torch.utils.checkpoint), as
+JAX's nn.remat.
 """
-import math
-
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ..ops.quantizer import embed_code, nearest_codes
+from ..ops.quantizer import embed_code, init_quantizer_state, nearest_codes, quantize_ema
 from .initializers import lecun_normal_
 
 
+class Conv(nn.Conv2d):
+    """nn.Conv2d whose input, weight and bias are cast to `dtype` (the
+    compute dtype, set by VQGAN) before the convolution."""
+    dtype = torch.float32
+
+    def forward(self, x):
+        return self._conv_forward(x.to(self.dtype), self.weight.to(self.dtype),
+                                  self.bias.to(self.dtype))
+
+
 def _conv(c_in, c_out, size, stride=1, padding=None):
-    return nn.Conv2d(c_in, c_out, size, stride,
-                     padding=size // 2 if padding is None else padding)
+    return Conv(c_in, c_out, size, stride, padding=size // 2 if padding is None else padding)
 
 
 class GroupNorm32(nn.Module):
@@ -99,7 +112,9 @@ class Upsample(nn.Module):
 
 
 class _Tower(nn.Module):
-    """Runs its named stages in the order they were added."""
+    """Runs its named stages in the order they were added; with remat (set
+    by VQGAN) each ResnetBlock and AttnBlock is recomputed in the backward."""
+    remat = False
 
     def __init__(self):
         super().__init__()
@@ -111,7 +126,12 @@ class _Tower(nn.Module):
 
     def forward(self, h):
         for name in self._order:
-            h = getattr(self, name)(h)
+            stage = getattr(self, name)
+            if (self.remat and torch.is_grad_enabled()
+                    and isinstance(stage, (ResnetBlock, AttnBlock))):
+                h = checkpoint(stage, h, use_reentrant=False)
+            else:
+                h = stage(h)
         return h
 
 
@@ -163,24 +183,26 @@ class Decoder(_Tower):
 
 
 class Quantizer(nn.Module):
-    """The EMA codebook state: embeddings [D, N] (uniform in +-sqrt(3), as
-    the reference) and the EMA statistics training would update."""
+    """The EMA codebook state as buffers (ops/quantizer.init_quantizer_state):
+    embeddings [D, N], ema_cluster_size_hidden, ema_dw_hidden and the int32
+    counter; ops/quantizer.quantize_ema updates them in training."""
 
     def __init__(self, embed_dim, n_embed, generator=None):
         super().__init__()
-        limit = math.sqrt(3.0)
-        self.register_buffer(
-            'embeddings', torch.rand(embed_dim, n_embed, generator=generator) * 2 * limit - limit)
-        self.register_buffer('ema_cluster_size_hidden', torch.zeros(n_embed))
-        self.register_buffer('ema_dw_hidden', torch.zeros(embed_dim, n_embed))
-        self.register_buffer('counter', torch.zeros((), dtype=torch.int32))
+        for name, value in init_quantizer_state(embed_dim, n_embed, generator).items():
+            self.register_buffer(name, value)
 
 
 class VQGAN(nn.Module):
-    """encode: NHWC images in [-1, 1] -> (quantized latents, codes);
-    decode / decode_code: latents or codes -> NHWC images (f32)."""
+    """forward: NHWC images in [-1, 1] -> (dec, e_latent_loss, quant, codes);
+    encode: images -> (quantized latents, codes); decode / decode_code:
+    latents or codes -> NHWC images (f32)."""
 
-    def __init__(self, config, dtype=torch.float32, generator=None):
+    def __init__(self, config, dtype=torch.float32, generator=None, param_dtype=None,
+                 remat=False):
+        """dtype: the convolutions' compute dtype; param_dtype: what their
+        parameters are stored in (default dtype). remat: recompute each
+        ResnetBlock and AttnBlock in the backward."""
         super().__init__()
         self.config = config
         self.encoder = Encoder(config)
@@ -188,19 +210,30 @@ class VQGAN(nn.Module):
         self.quant_conv = _conv(config.z_channels, config.embed_dim, 1)
         self.post_quant_conv = _conv(config.embed_dim, config.z_channels, 1)
         for module in self.modules():
-            if isinstance(module, nn.Conv2d):
+            if isinstance(module, Conv):
                 lecun_normal_(module.weight, generator)
                 nn.init.zeros_(module.bias)
-                module.to(dtype)
+                module.to(param_dtype or dtype)
+                module.dtype = dtype
+        self.encoder.remat = self.decoder.remat = remat
         self.quantizer = Quantizer(config.embed_dim, config.n_embed, generator)
 
     @property
     def dtype(self):
-        return self.quant_conv.weight.dtype
+        return self.quant_conv.dtype
 
-    def encode(self, x):
+    def _latents(self, x):
         h = self.encoder(x.permute(0, 3, 1, 2).to(self.dtype))
-        h = self.quant_conv(h).permute(0, 2, 3, 1).float()
+        return self.quant_conv(h).permute(0, 2, 3, 1).float()
+
+    def encode(self, x, training=False):
+        """-> (quant, codes). training=True quantizes through quantize_ema,
+        which updates the EMA state, and gives quant the straight-through
+        gradient."""
+        h = self._latents(x)
+        if training:
+            quant, _loss, codes = quantize_ema(self.quantizer, h, training=True)
+            return quant, codes
         codes = nearest_codes(self.quantizer.embeddings, h)
         return embed_code(self.quantizer.embeddings, codes), codes
 
@@ -210,3 +243,10 @@ class VQGAN(nn.Module):
 
     def decode_code(self, codes):
         return self.decode(embed_code(self.quantizer.embeddings, codes))
+
+    def forward(self, x, training=False):
+        """JAX's VQGAN.__call__: (dec f32, e_latent_loss, quant, codes), the
+        EMA state updated when training."""
+        quant, e_latent_loss, codes = quantize_ema(self.quantizer, self._latents(x),
+                                                   training=training)
+        return self.decode(quant), e_latent_loss, quant, codes

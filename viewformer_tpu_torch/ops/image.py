@@ -1,6 +1,7 @@
-"""Image normalisation and resize on tensors, and the image decoder (port of
+"""Image normalisation and resize on tensors, and the image codecs (port of
 viewformer_tpu/ops/image.py). The JAX package's native libjpeg decoder
-(native/vfimage.cc) is not ported: decode_image uses Pillow."""
+(native/vfimage.cc) is not ported: the codecs use Pillow, imported where an
+image is encoded or decoded."""
 import io
 
 import numpy as np
@@ -42,6 +43,16 @@ def resize(images, image_size, method=None):
     return x.reshape(tuple(batch_shape) + tuple(x.shape[1:]))
 
 
+def ensure_wire_images(images):
+    """Host frames for an upload: uint8 numpy passes as it is (the device
+    maps it to [-1, 1], normalize_images); float frames, taken as [0, 255],
+    are mapped to f32 [-1, 1] here."""
+    images = np.asarray(images)
+    if images.dtype == np.uint8:
+        return images
+    return images.astype(np.float32) / 255.0 * 2.0 - 1.0
+
+
 def upload_frames(images, image_size, device):
     """uint8 (or float in [0, 255]) numpy frames [..., H, W, C] -> a tensor
     on `device`, resized to image_size: uint8 as it is (normalize_images
@@ -50,6 +61,21 @@ def upload_frames(images, image_size, device):
     images = np.require(np.asarray(images), requirements=('C', 'W'))
     frames = resize(torch.from_numpy(images).to(device), image_size)
     return frames if frames.dtype == torch.uint8 else frames.float() / 255.0 * 2.0 - 1.0
+
+
+def encode_image(image):
+    """uint8 [H, W, 3|4] -> JPEG (RGB, quality 95) or PNG (RGBA) bytes, the
+    reference's shard format."""
+    from PIL import Image
+
+    image = np.asarray(image)
+    if image.shape[-1] == 4:
+        pil, fmt, kwargs = Image.fromarray(image, 'RGBA'), 'PNG', {}
+    else:
+        pil, fmt, kwargs = Image.fromarray(image, 'RGB'), 'JPEG', {'quality': 95}
+    buf = io.BytesIO()
+    pil.save(buf, fmt, **kwargs)
+    return buf.getvalue()
 
 
 def decode_image(data):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the eight attention kernels of one checkout of the port on one CUDA
-device, at the main paths' shapes, and prints one JSON line.
+"""Times the eight attention kernels and the VQ-GAN inference of one checkout
+of the port on one CUDA device, at the main paths' shapes, and prints one
+JSON line.
 
     python3 viewformer_tpu_torch/tools/kernel_times.py [--root DIR] [--n 20]
 
@@ -14,6 +15,10 @@ timings after 3 warm-up calls, the wrapper's host time included. Shapes
 B2's cache form over a 20-frame cache at n=19 and its one-shot form at
 q [1536, 1280, 64] with the log-sum-exp; B3 and B6 at [768, 1280, 64]; B4
 and B8 at the one-shot shape; B5 and B7 as B1 and B2 training, rate 0.1.
+The VQ-GAN is VQGANConfig() with random weights (torch.Generator seed 0) in
+bf16, as serving loads it: encode of 640 frames (a serving request's
+context) and of 32 frames (a session's observe), decode of 32 frames (a
+one-view render).
 """
 import argparse
 import json
@@ -84,10 +89,22 @@ def main():
         'B8': lambda: ac.branch_attention_dropout_bwd(qb, k, v, kb, vb, out7, dob, lse7, L,
                                                       WORDS, RATE),
     }
+    ms = {name: time_ms(fn, args.n) for name, fn in cases.items()}
+
+    from viewformer_tpu_torch.config import VQGANConfig
+    from viewformer_tpu_torch.models import AutoModel
+    config = VQGANConfig()
+    model = AutoModel.from_config(config, torch.bfloat16, 'cuda', torch.Generator().manual_seed(0))
+    frames = torch.rand(640, config.image_size, config.image_size, 3, generator=gen,
+                        device='cuda') * 2 - 1
+    with torch.inference_mode():
+        _, codes = model.encode(frames[:32])
+        ms['VQ-GAN encode 640'] = time_ms(lambda: model.encode(frames), args.n)
+        ms['VQ-GAN encode 32'] = time_ms(lambda: model.encode(frames[:32]), args.n)
+        ms['VQ-GAN decode 32'] = time_ms(lambda: model.decode_code(codes), args.n)
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
                           capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({'root': root, 'card': card,
-                      'ms': {name: time_ms(fn, args.n) for name, fn in cases.items()}}), flush=True)
+    print(json.dumps({'root': root, 'card': card, 'ms': ms}), flush=True)
 
 
 if __name__ == '__main__':

@@ -1,2 +1,2 @@
-"""Training (port of viewformer_tpu/train): the transformer train step and
-loop, checkpoints and the metric log."""
+"""Training (port of viewformer_tpu/train): the codebook and transformer
+train steps and loops, checkpoints and the metric log."""

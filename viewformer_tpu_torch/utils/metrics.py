@@ -7,8 +7,6 @@ on the device their tensors lie on. Mean and Median accumulate on the host
 in float64, like the JAX package's. The metric classes take numpy arrays or
 tensors; uint8 images are scaled to [0, 1].
 """
-import functools
-import sys
 
 import numpy as np
 import torch
@@ -219,24 +217,21 @@ class MeanAbsoluteError(Mean):
         super().update_state((_to_float(gt_images) - _to_float(images)).abs().mean((-3, -2, -1)))
 
 
-@functools.lru_cache(maxsize=None)
-def _warn_lpips_unavailable(net):
-    print(f'WARNING: LPIPS({net}) is not available in viewformer_tpu_torch: its '
-          'calibrated VGG weights are not in the repository and the VGG trunk is not '
-          'ported. The lpips metric is reported as null, so results.json DIVERGES from '
-          'the reference on that key.', file=sys.stderr)
-
-
 class LPIPSMetric(Mean):
-    """LPIPS(VGG). Not available in the port: `available` is False, the
-    metric records nothing and an evaluator reports it as null, after one
-    loud warning a process (the JAX package does the same when its
-    calibrated weights are absent)."""
+    """LPIPS(VGG) of images in [0, 1] (or uint8), through models.lpips on the
+    device of the images. `available` is False when load_lpips finds no
+    weights (it warns once a process): the metric then records nothing and
+    an evaluator reports it as null, as the JAX package does."""
 
     def __init__(self, net='vgg', name=None):
         super().__init__(name or f'lpips-{net}')
-        self.available = False
-        _warn_lpips_unavailable(net)
+        from ..models.lpips import load_lpips
+        self._lpips = load_lpips(net)
+        self.available = self._lpips is not None
 
     def update_state(self, gt_images, images):
-        pass
+        if self._lpips is None:
+            return
+        gt, im = _to_float(gt_images) * 2 - 1, _to_float(images) * 2 - 1
+        with torch.no_grad():
+            super().update_state(self._lpips.to(gt.device)(gt, im))
