@@ -90,10 +90,29 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      a direct encode of the same batches, frames/s and the device's share;
      train_transformer(MIGTConfig()) for 2 steps over the generated codes
      with the trained codebook, and one evaluate-codebook batch, with exact
-     launches of B5-B8 (the codebook_pipeline path of the kernels line).
+     launches of B5-B8 (the codebook_pipeline path of the kernels line);
+ 10. the 7-Scenes and remaining evaluators (sevenscenes_and_more): first
+     ops/image.resize of seeded uint8 frames (640x480 and 256 -> 128
+     bilinear, 64 -> 128 nearest) on the card against the CPU, byte for
+     byte (CUDA's bilinear rounds otherwise in up to 2% of the bytes), and
+     upload_frames to the card, which must give the CPU's bytes; then
+     random-weight MIGTConfig() and VQGANConfig() job dirs over a synthetic
+     7-Scenes scene (chess.zip with nested seq-NN.zip; 200 train and 40 test
+     frames of 640x480, seeded gradients and rigid poses):
+     evaluate_sevenscenes 'standard' (32 queries, a batch of 32),
+     'generated_images' (num_gen_ctx 5) and 'pose_refinement' (9) on 2
+     queries each, the three baselines, evaluate_sevenscenes_multictx (a
+     batch of 32), then transformer-multictx-allimg (2 colors sequences of
+     20 frames, and one with keep_last_frame) and generate-gqn-images (3):
+     the results.json keys of the JAX package, finite values but lpips
+     (null), exact launches a batch, a query and a run; one standard query
+     on the card (bf16) against the CPU (f32), logits within LOGITS_TOL;
+     prints the SceneLookup build, the seconds of a batch and of a query
+     with the device's busy share (torch.profiler), and the peak memory.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -188,6 +207,15 @@ PIPE_TRAIN_B, PIPE_STEPS, CB_EVAL_IMAGES = 8, 2, 64
 # columns that no differing code touches within EMA_TOL of the largest
 # (an average of bf16 latents against one of f32 latents).
 CB_CODES_EQUAL, EMA_TOL = 0.9, 5e-2
+# Phase 10: a synthetic 7-Scenes scene of SEVEN_TRAIN train frames (two
+# sequences) and SEVEN_TEST test frames of SEVEN_W x SEVEN_H; evaluate
+# 7scenes (standard) and 7scenes-multictx over SEVEN_QUERIES queries in
+# batches of B, the generated_images and pose_refinement procedures over
+# SEVEN_SPECIAL queries each, the three baselines over every test frame;
+# allimg over ALLIMG_SEQUENCES colors sequences of S frames (and one more
+# with keep_last_frame), generate-gqn-images over GQN_SEQUENCES of them.
+SEVEN_TRAIN, SEVEN_TEST, SEVEN_W, SEVEN_H = 200, 40, 640, 480
+SEVEN_QUERIES, SEVEN_SPECIAL, ALLIMG_SEQUENCES, GQN_SEQUENCES = 32, 2, 2, 3
 
 
 def compared(n_layer):
@@ -794,15 +822,18 @@ def main_path(ac, models, log, card):
     return launches
 
 
-def card_vs_cpu(models, cpu_models, log):
-    """Phase 4: one sequence, card (bf16, kernels) against CPU (f32, plain)."""
+def card_vs_cpu(models, cpu_models, log, images=None, cameras=None, phase='card_vs_cpu'):
+    """Phase 4: one sequence (a phase-3 request's, unless given: frames
+    [1, S, SIZE, SIZE, 3] and cameras [1, S, 7]), card (bf16, kernels)
+    against CPU (f32, plain)."""
     from viewformer_tpu_torch.evaluate.transformer import (
         generate_batch_predictions, normalize_cameras, to_relative_cameras)
     from viewformer_tpu_torch.models import migt_incremental as inc
     from viewformer_tpu_torch.ops.image import normalize_images
 
-    images, cameras = make_requests(1, seed=7)[0]
-    images, cameras = images[:1], cameras[:1]
+    if images is None:
+        images, cameras = make_requests(1, seed=7)[0]
+        images, cameras = images[:1], cameras[:1]
 
     @torch.inference_mode()
     def run(transformer, codebook, codes=None):
@@ -820,7 +851,7 @@ def card_vs_cpu(models, cpu_models, log):
     rel = ((card_logits - cpu_logits).abs().max() / cpu_logits.abs().max()).item()
     card_out = generate_batch_predictions(*models, images, cameras)
     cpu_out = generate_batch_predictions(*cpu_models, images, cameras)
-    emit({'phase': 'card_vs_cpu', 'logits_rel_err': rel, 'tol': LOGITS_TOL,
+    emit({'phase': phase, 'logits_rel_err': rel, 'tol': LOGITS_TOL,
           'encode_code_agreement': (card_codes.reshape(-1) == cpu_codes.reshape(-1))
           .float().mean().item(),
           'generate_argmax_agreement': (card_logits.argmax(-1) == cpu_logits.argmax(-1))
@@ -1277,6 +1308,27 @@ def launches_of(ac, fn):
     return out, {name: n - before[name] for name, n in counts(ac).items()}
 
 
+@contextlib.contextmanager
+def record_calls(ac, module, name):
+    """Within the context, module.<name> records each call in the yielded
+    list: its synced host seconds, its kernel launches and its arguments."""
+    fn, calls = getattr(module, name), []
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, launches = launches_of(ac, lambda: fn(*args, **kwargs))
+        torch.cuda.synchronize()
+        calls.append({'s': time.perf_counter() - t0, 'launches': launches,
+                      'call': lambda: fn(*args, **kwargs)})
+        return out
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def only(ac, **launches):
     out = {fn.__name__: 0 for fn in ac.KERNELS}
     out.update(launches)
@@ -1419,19 +1471,9 @@ def evaluate_path(ac, jobs, log, card):
     ac.reset_launch_counts()
     try:
         for kind, module in modules.items():
-            predict = module.generate_batch_predictions
-            batches[kind] = []
-
-            def timed(*args, predict=predict, kind=kind):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                out, launches = launches_of(ac, lambda: predict(*args))
-                batches[kind].append({'s': time.perf_counter() - t0, 'launches': launches})
-                return out
-            module.generate_batch_predictions = timed
             job_dir = os.path.join(tmp, kind)
             t0 = time.perf_counter()
-            try:
+            with record_calls(ac, module, 'generate_batch_predictions') as batches[kind]:
                 if kind == 'codebook':
                     results[kind] = ecodebook.evaluate_codebook(
                         loader, jobs['codebook'], job_dir, batch_size=CODEBOOK_BATCH,
@@ -1442,8 +1484,6 @@ def evaluate_path(ac, jobs, log, card):
                     results[kind] = evaluate(loader, jobs['transformer'], jobs['codebook'],
                                              job_dir, batch_size=B, num_store_images=0,
                                              progress=False)
-            finally:
-                module.generate_batch_predictions = predict
             batches[kind + ' run_s'] = time.perf_counter() - t0
             with open(os.path.join(job_dir, 'results.json')) as f:
                 check(json.load(f) == json.loads(json.dumps(results[kind])),
@@ -1924,6 +1964,309 @@ def codebook_pipeline(ac, log, card):
     return launches
 
 
+def resize_check(log, card):
+    """Phase 10, item 1: ops/image.resize of seeded uint8 frames on the card
+    against the same call on the CPU (the reference preprocessing), byte for
+    byte, with the count of differing bytes and the largest difference; then
+    upload_frames to the card, which must give the CPU's bytes (it resizes
+    on the host), so no frame of the phase is resized on the card."""
+    from viewformer_tpu_torch.ops.image import resize, upload_frames
+
+    rng = np.random.RandomState(10)
+    cases = (('640x480->128 bilinear', (16, 480, 640, 3), 'bilinear'),
+             ('256->128 bilinear', (32, 256, 256, 3), 'bilinear'),
+             ('64->128 nearest', (32, 64, 64, 3), 'nearest'))
+    record = {}
+    for name, shape, method in cases:
+        frames = torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8))
+        on_cpu = resize(frames, SIZE, method)
+        on_card = resize(frames.cuda(), SIZE, method).cpu()
+        diff = (on_card.int() - on_cpu.int()).abs()
+        record[name] = {'frames': list(shape), 'bytes': diff.numel(),
+                        'differing_bytes': int((diff > 0).sum()), 'max_abs_diff': int(diff.max())}
+        if record[name]['differing_bytes']:
+            at = tuple(int(i) for i in torch.nonzero(diff)[0])
+            record[name].update(first_difference_at=at, cpu_value=int(on_cpu[at]),
+                                card_value=int(on_card[at]))
+        uploaded = upload_frames(frames.numpy(), SIZE, 'cuda').cpu()
+        record[name]['upload_frames_differing_bytes'] = int((uploaded != on_cpu).sum())
+        print(f'resize {name}: {record[name]["differing_bytes"]} of {diff.numel()} bytes differ '
+              f'between the card and the CPU, max |diff| {record[name]["max_abs_diff"]}; '
+              f'upload_frames: {record[name]["upload_frames_differing_bytes"]} differ ({card})',
+              flush=True)
+    emit({'phase': 'resize_card_vs_cpu', 'card': card, 'cases': record}, log)
+    for name, r in record.items():
+        check(r['upload_frames_differing_bytes'] == 0,
+              f'upload_frames resized {name} otherwise than the CPU')
+
+
+def write_sevenscenes(path, seed=0):
+    """chess.zip in the 7-Scenes layout under path: TrainSplit.txt (sequences
+    1 and 2, SEVEN_TRAIN frames), TestSplit.txt (sequence 3, SEVEN_TEST
+    frames) and seq-0N.zip of frame-NNNNNN.color.png (SEVEN_W x SEVEN_H: a
+    seeded sinusoid gradient plus 8x8-pixel blocks of noise, so that the
+    PNGs stay small) and frame-NNNNNN.pose.txt (camera to world: a random
+    rotation, and a position on a random walk)."""
+    import io
+    import zipfile
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:SEVEN_H, 0:SEVEN_W]
+    sizes = {1: SEVEN_TRAIN // 2, 2: SEVEN_TRAIN - SEVEN_TRAIN // 2, 3: SEVEN_TEST}
+    with zipfile.ZipFile(os.path.join(path, 'chess.zip'), 'w') as scene:
+        scene.writestr('chess/TrainSplit.txt', 'sequence1\nsequence2\n')
+        scene.writestr('chess/TestSplit.txt', 'sequence3\n')
+        for seq, n in sizes.items():
+            buf, position = io.BytesIO(), rng.randn(3)
+            with zipfile.ZipFile(buf, 'w') as z:
+                for i in range(n):
+                    phase = rng.uniform(0, 2 * np.pi, 3)
+                    base = 127.5 + 100 * np.sin(x[..., None] / 97.0 + y[..., None] / 61.0 + phase)
+                    noise = rng.randint(-12, 13, (SEVEN_H // 8, SEVEN_W // 8, 3))
+                    noise = noise.repeat(8, 0).repeat(8, 1)
+                    png = io.BytesIO()
+                    Image.fromarray(np.clip(base + noise, 0, 255).astype(np.uint8)).save(
+                        png, 'PNG', compress_level=1)
+                    z.writestr(f'frame-{i:06d}.color.png', png.getvalue())
+                    q, r = np.linalg.qr(rng.randn(3, 3))
+                    rotation = q * np.sign(np.diag(r))
+                    rotation[:, 0] *= np.sign(np.linalg.det(rotation))
+                    position = position + 0.05 * rng.randn(3)
+                    pose = np.eye(4)
+                    pose[:3, :3], pose[:3, 3] = rotation, position
+                    z.writestr(f'frame-{i:06d}.pose.txt',
+                               '\n'.join(' '.join(f'{v:.8e}' for v in row) for row in pose))
+            scene.writestr(f'chess/seq-{seq:02d}.zip', buf.getvalue())
+
+
+def device_share(fn):
+    """(synced host s, device busy s) of one call of fn under torch.profiler:
+    the busy time is the summed self time of its CUDA kernels and copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall, sum(e.self_device_time_total for e in prof.key_averages()) / 1e6
+
+
+def check_results(kind, results, keys):
+    """results {row: {metric: value}} (or one row): the metrics are `keys`,
+    finite but lpips, which is null."""
+    for row in results.values():
+        check(list(row) == keys, f'{kind}: results.json keys {list(row)}')
+        for key, value in row.items():
+            check(value is None if key == 'lpips' else np.isfinite(value), f'{kind}: {key} = {value}')
+
+
+def sevenscenes_and_more(ac, log, card):
+    """Phase 10. Returns the launch counts of its paths."""
+    import random
+
+    from viewformer_tpu_torch import models
+    from viewformer_tpu_torch.config import load_config
+    from viewformer_tpu_torch.data.loaders import build
+    from viewformer_tpu_torch.data.dataset import generate_dataset_from_loader
+    from viewformer_tpu_torch.evaluate import generate_images as egqn
+    from viewformer_tpu_torch.evaluate import multictx_allimg as eallimg
+    from viewformer_tpu_torch.evaluate import sevenscenes as e7
+    from viewformer_tpu_torch.evaluate import sevenscenes_baseline as e7baseline
+    from viewformer_tpu_torch.evaluate import sevenscenes_multictx as e7multictx
+
+    resize_check(log, card)
+    metrics = ['loc-angle', 'loc-dist', 'loc-angle-med', 'loc-dist-med',
+               'mse', 'rmse', 'mae', 'psnr', 'lpips', 'ssim']  # the JAX package's keys
+    contexts = [f'ctx{i:02d}' for i in range(1, S)]
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_7scenes_')
+    record = {'phase': 'sevenscenes_and_more', 'card': card, 'train_frames': SEVEN_TRAIN,
+              'test_frames': SEVEN_TEST, 'frame': [SEVEN_W, SEVEN_H], 'image_size': SIZE}
+    launches, expected = {}, {}
+    try:
+        t0 = time.perf_counter()
+        tjob = save_transformer(os.path.join(tmp, 'transformer'))
+        cjob = save_codebook(os.path.join(tmp, 'codebook'))
+        scenes = os.path.join(tmp, '7scenes')
+        os.makedirs(scenes)
+        write_sevenscenes(scenes)
+        images = os.path.join(tmp, 'images')
+        loader = build('colors', split='test', num_sequences=max(ALLIMG_SEQUENCES, GQN_SEQUENCES),
+                       sequence_size=S, image_size=SIZE)
+        generate_dataset_from_loader(loader, 'test', os.path.join(images, 'colors'),
+                                     max_sequences_per_shard=len(loader), progress=False)
+        record['setup_s'] = time.perf_counter() - t0
+        n_layer = load_config(tjob).n_layer
+        per_call = {
+            'standard': only(ac, block_causal_attention_fwd=n_layer - 1,
+                             branch_attention_fwd=2 * n_layer),
+            'generated_images': only(ac, block_causal_attention_fwd=4 * n_layer),
+            'pose_refinement': only(ac, block_causal_attention_fwd=2 * n_layer - 1,
+                                    branch_attention_fwd=2 * n_layer),
+            '7scenes-multictx': only(ac, block_causal_attention_fwd=n_layer,
+                                     branch_attention_fwd=n_layer)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+        # evaluate 7scenes, standard: SEVEN_QUERIES queries in batches of B
+        ac.reset_launch_counts()
+        t0 = time.perf_counter()
+        with record_calls(ac, models, 'load_model') as loads, \
+                record_calls(ac, e7, 'SceneLookup') as lookups, \
+                record_calls(ac, e7, 'generate_batch_predictions') as batches:
+            result = e7.evaluate_sevenscenes(
+                scenes, tjob, cjob, os.path.join(tmp, 'standard'), batch_size=B,
+                scenes=['chess'], num_eval_sequences=SEVEN_QUERIES, num_context_views=S - 1,
+                num_store_images=0, image_size=SIZE, progress=False)
+        run_s = time.perf_counter() - t0
+        launches['7scenes'] = counts(ac)
+        check_results('7scenes standard', result, metrics)
+        with open(os.path.join(tmp, 'standard', 'chess', 'results.json')) as f:
+            check(json.load(f) == json.loads(json.dumps(result['chess'])),
+                  'chess/results.json differs from the returned results')
+        n_batches = -(-SEVEN_QUERIES // B)
+        check(len(batches) == n_batches, f'7scenes standard: {len(batches)} batches')
+        for i, b in enumerate(batches):
+            check(b['launches'] == per_call['standard'], f'standard batch {i}: {b["launches"]}')
+        batch_s = [b['s'] for b in batches]
+        record['standard'] = {
+            'queries': SEVEN_QUERIES, 'batch': B, 'run_s': run_s,
+            'load_model_s': sum(c['s'] for c in loads), 'scene_lookup_s': lookups[0]['s'],
+            'batch_s': batch_s,
+            'host_s_outside_loads_lookup_and_batches': run_s - sum(c['s'] for c in loads)
+            - lookups[0]['s'] - sum(batch_s),
+            'launches_per_batch': [b['launches'] for b in batches], 'result': result['chess']}
+        wall, busy = device_share(batches[0]['call'])
+        record['standard'].update(profiled_batch_s=wall, device_busy_s=busy,
+                                  device_share=busy / wall)
+        first_lookup = e7.SceneLookup(scenes, 'chess', SIZE)  # held for card_vs_cpu below
+
+        # the special procedures, SEVEN_SPECIAL queries each
+        for procedure, fn, num_gen_ctx in (
+                ('generated_images', 'generate_batch_predictions_using_generated_images', 5),
+                ('pose_refinement', 'generate_batch_predictions_using_pose_refinement', 9)):
+            ac.reset_launch_counts()
+            with record_calls(ac, e7, fn) as queries:
+                result = e7.evaluate_sevenscenes(
+                    scenes, tjob, cjob, os.path.join(tmp, procedure), scenes=['chess'],
+                    num_eval_sequences=SEVEN_SPECIAL, num_context_views=S - 1,
+                    num_store_images=0, image_size=SIZE, progress=False,
+                    generation_procedure=procedure, num_gen_ctx=num_gen_ctx)
+            launches[f'7scenes {procedure}'] = counts(ac)
+            check_results(f'7scenes {procedure}', result, metrics)
+            check(len(queries) == SEVEN_SPECIAL, f'{procedure}: {len(queries)} queries')
+            for i, q in enumerate(queries):
+                check(q['launches'] == per_call[procedure], f'{procedure} query {i}: {q["launches"]}')
+            wall, busy = device_share(queries[-1]['call'])
+            record[procedure] = {'num_gen_ctx': num_gen_ctx, 'query_s': [q['s'] for q in queries],
+                                 'launches_per_query': [q['launches'] for q in queries],
+                                 'profiled_query_s': wall, 'device_busy_s': busy,
+                                 'device_share': busy / wall, 'result': result['chess']}
+
+        # the baselines: no model, no launch
+        ac.reset_launch_counts()
+        t0 = time.perf_counter()
+        record['baselines'] = {
+            baseline: e7baseline.evaluate_sevenscenes_baseline(
+                scenes, os.path.join(tmp, baseline), scenes=['chess'], baseline=baseline,
+                num_eval_sequences=SEVEN_TEST, progress=False)['chess']
+            for baseline in ('mean', 'position_oracle', 'orientation_oracle')}
+        record['baselines_s'] = time.perf_counter() - t0
+        check(counts(ac) == only(ac), f'7scenes-baseline launched {counts(ac)}')
+        check_results('7scenes-baseline', record['baselines'], metrics[:4])
+
+        # 7scenes-multictx: SEVEN_QUERIES queries in batches of B
+        ac.reset_launch_counts()
+        with record_calls(ac, e7multictx, 'generate_batch_predictions') as batches:
+            result = e7multictx.evaluate_sevenscenes_multictx(
+                scenes, tjob, cjob, os.path.join(tmp, 'multictx'), batch_size=B,
+                scenes=['chess'], num_eval_sequences=SEVEN_QUERIES, store_ctx=False,
+                num_store_images=0, num_context_views=S - 1, image_size=SIZE, progress=False)
+        launches['7scenes-multictx'] = counts(ac)
+        check(list(result['chess']) == contexts, f'7scenes-multictx keys {list(result["chess"])}')
+        check_results('7scenes-multictx', result['chess'], metrics)
+        check(len(batches) == n_batches, f'7scenes-multictx: {len(batches)} batches')
+        for i, b in enumerate(batches):
+            check(b['launches'] == per_call['7scenes-multictx'],
+                  f'7scenes-multictx batch {i}: {b["launches"]}')
+        record['7scenes-multictx'] = {'batch_s': [b['s'] for b in batches],
+                                      'launches_per_batch': [b['launches'] for b in batches]}
+
+        # allimg: ALLIMG_SEQUENCES sequences with the default context (one
+        # predict call a sequence), then one with keep_last_frame (S calls)
+        dataset = lambda size: build('dataset', path=images, split='test',  # noqa: E731
+                                     image_size=size)
+        ac.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = eallimg.evaluate_transformer_multictx_allimg(
+            dataset, tjob, cjob, os.path.join(tmp, 'allimg'),
+            num_eval_sequences=ALLIMG_SEQUENCES, progress=False)
+        chained = eallimg.evaluate_transformer_multictx_allimg(
+            dataset, tjob, cjob, os.path.join(tmp, 'allimg-chained'), context_views=[0],
+            keep_last_frame=True, num_eval_sequences=1, progress=False)
+        record['allimg_s'] = time.perf_counter() - t0
+        launches['allimg'] = counts(ac)
+        expected['allimg'] = only(ac, **{name: (ALLIMG_SEQUENCES + S) * n_layer for name in
+                                         ('block_causal_attention_fwd', 'branch_attention_fwd')})
+        check(launches['allimg'] == expected['allimg'], f'allimg launches {launches["allimg"]}')
+        check(list(result) == contexts and list(chained) == ['ctx01'],
+              f'allimg keys {list(result)}, {list(chained)}')
+        check_results('allimg', result, metrics)
+        check_results('allimg keep_last_frame', chained, metrics)
+        trees = sorted(os.listdir(os.path.join(tmp, 'allimg', 'gen_images')))
+        check(len(trees) == ALLIMG_SEQUENCES and len(os.listdir(os.path.join(
+            tmp, 'allimg', 'gen_images', trees[0], f'gen-{S - 1:02d}'))) == S,
+            f'allimg image tree {trees}')
+
+        # generate-gqn-images: GQN_SEQUENCES sequences, 3 context frames each
+        ac.reset_launch_counts()
+        t0 = time.perf_counter()
+        egqn.generate_gqn_images(images, os.path.join(tmp, 'gqn'), tjob, cjob,
+                                 num_eval_sequences=GQN_SEQUENCES, progress=False)
+        record['gqn_s'] = time.perf_counter() - t0
+        launches['generate-gqn-images'] = counts(ac)
+        expected['generate-gqn-images'] = {name: GQN_SEQUENCES * n
+                                           for name, n in per_call['standard'].items()}
+        check(launches['generate-gqn-images'] == expected['generate-gqn-images'],
+              f'generate-gqn-images launches {launches["generate-gqn-images"]}')
+        check(sorted(os.listdir(os.path.join(tmp, 'gqn'))) == sorted(
+            [f'{kind}{i}.png' for i in range(GQN_SEQUENCES) for kind in ('gen', 'gt')]
+            + [f'c{i}_{j}.png' for i in range(GQN_SEQUENCES) for j in range(3)]),
+            'generate-gqn-images files')
+        record['max_memory_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
+
+        # card against CPU: one standard query (19 sampled train frames, then
+        # the first test frame), bf16 kernels against the plain f32 twins
+        test = build('sevenscenes', path=scenes, split='test', scenes=['chess'],
+                     sequence_size=1, image_size=SIZE)[0]
+        context = random.Random(42).sample(first_lookup.files, S - 1)
+        cameras, frames = (np.stack(x, 0) for x in zip(*(first_lookup[f] for f in context)))
+        frames = np.concatenate([frames, np.asarray(test['frames'])], 0)[None]
+        cameras = np.concatenate([cameras, test['cameras']], 0)[None].astype(np.float32)
+        card_vs_cpu((models.load_model(tjob, torch.bfloat16, 'cuda'),
+                     models.load_model(cjob, torch.bfloat16, 'cuda')),
+                    (models.load_model(tjob, torch.float32, 'cpu'),
+                     models.load_model(cjob, torch.float32, 'cpu')),
+                    log, frames, cameras, phase='sevenscenes_card_vs_cpu')
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    record.update(launches=launches, expected_per_call=per_call, expected=expected)
+    emit(record, log)
+    print(f'7scenes: SceneLookup of {SEVEN_TRAIN} frames {record["standard"]["scene_lookup_s"]:.3f} s; '
+          f'standard batch of {B} {statistics.median(record["standard"]["batch_s"]):.4f} s '
+          f'(device share {record["standard"]["device_share"]:.3f}), run '
+          f'{record["standard"]["run_s"]:.3f} s; generated_images query '
+          f'{statistics.median(record["generated_images"]["query_s"]):.4f} s (device share '
+          f'{record["generated_images"]["device_share"]:.3f}); pose_refinement query '
+          f'{statistics.median(record["pose_refinement"]["query_s"]):.4f} s (device share '
+          f'{record["pose_refinement"]["device_share"]:.3f}); peak '
+          f'{record["max_memory_allocated_gb"]:.3f} GB ({card})', flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -1974,6 +2317,8 @@ def main():
     launches.update(serve_and_evaluate(ac, log, card))
     torch.cuda.empty_cache()
     launches['codebook_pipeline'] = codebook_pipeline(ac, log, card)
+    torch.cuda.empty_cache()
+    launches.update(sevenscenes_and_more(ac, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

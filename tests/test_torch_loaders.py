@@ -50,10 +50,17 @@ def test_wrappers_match_jax(wrap):
 
 
 def test_registry():
-    assert tloaders.get_loader_names() == ['colors', 'dataset']
-    for name in ('co3d', 'co3dv2', 'interiornet', 'sevenscenes', 'shapenet', 'sm7'):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            tloaders.get_loader(name)
+    """The JAX package's eight loader names, each built lazily from the port's
+    own module (never from viewformer_tpu), with the same loader class
+    names; get_loaders() holds all of them."""
+    names = ['co3d', 'co3dv2', 'colors', 'dataset', 'interiornet', 'sevenscenes', 'shapenet',
+             'sm7']
+    assert tloaders.get_loader_names() == jloaders.get_loader_names() == names
+    for name in names:
+        loader_class = tloaders.get_loader(name).loader_class
+        assert loader_class.__module__ == f'viewformer_tpu_torch.data.loaders.{name}'
+        assert loader_class.__name__ == jloaders.get_loader(name).loader_class.__name__
+    assert sorted(tloaders.get_loaders()) == names
     with pytest.raises(ValueError, match='Unknown loader'):
         tloaders.get_loader('bogus')
 

@@ -1,10 +1,12 @@
 """The port's serving slice end to end against the JAX package, its
 independence from the JAX package (serving, train steps without and with
 dropout, the reader, checkpoints and train_transformer with a resume, a
-serving session, the colors loader and the three evaluators, and the tiny
+serving session, the colors loader and the three evaluators, the tiny
 pipeline dataset generate -> train codebook -> generate-codes -> train
-transformer -> evaluate codebook through the CLI, with viewformer_tpu, jax
-and flax blocked), and chip_smoke.py's refusal to run without a card."""
+transformer -> evaluate codebook through the CLI, ArchiveStore and the
+7-Scenes loader, and the 7-Scenes, allimg and generate-gqn-images
+evaluators, with viewformer_tpu, jax and flax blocked), and chip_smoke.py's
+refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -184,6 +186,57 @@ cli.main(['evaluate', 'codebook', '--loader', 'dataset', '--loader-path', images
     '--fp32', '--num-store-images', '0', '--batch-size', '5', '--num-eval-images', '5'])
 result = json.load(open(os.path.join(out, 'e4', 'results.json')))
 assert result['lpips'] is None and np.isfinite(result['psnr'])
+import io, zipfile
+from PIL import Image
+from viewformer_tpu_torch.data.archive import ArchiveStore
+from viewformer_tpu_torch.data.loaders import get_loaders
+from viewformer_tpu_torch.data.loaders.sevenscenes import SevenScenesLoader
+from viewformer_tpu_torch.evaluate.generate_images import generate_gqn_images
+from viewformer_tpu_torch.evaluate.multictx_allimg import evaluate_transformer_multictx_allimg
+from viewformer_tpu_torch.evaluate.sevenscenes import evaluate_sevenscenes
+from viewformer_tpu_torch.evaluate.sevenscenes_baseline import evaluate_sevenscenes_baseline
+from viewformer_tpu_torch.evaluate.sevenscenes_multictx import evaluate_sevenscenes_multictx
+assert len(get_loaders()) == 8
+def seq_zip(n, x0):
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, 'w') as z:
+        for i in range(n):
+            png = io.BytesIO()
+            Image.fromarray(rng.randint(0, 256, (24, 32, 3)).astype(np.uint8)).save(png, 'PNG')
+            z.writestr('frame-%06d.color.png' % i, png.getvalue())
+            pose = np.eye(4)
+            pose[:3, 3] = [x0 + 0.1 * i, 0, 1]
+            z.writestr('frame-%06d.pose.txt' % i, '\\n'.join(' '.join(map(str, r)) for r in pose))
+    return buf.getvalue()
+scenes = os.path.join(out, '7scenes')
+os.makedirs(scenes)
+with zipfile.ZipFile(os.path.join(scenes, 'chess.zip'), 'w') as z:
+    z.writestr('chess/TrainSplit.txt', 'sequence1\\n')
+    z.writestr('chess/TestSplit.txt', 'sequence2\\n')
+    z.writestr('chess/seq-01.zip', seq_zip(20, 0.0))
+    z.writestr('chess/seq-02.zip', seq_zip(2, 5.0))
+with ArchiveStore(os.path.join(scenes, 'chess')) as archive:
+    assert sorted(archive.ls('')) == ['TestSplit.txt', 'TrainSplit.txt', 'seq-01.zip', 'seq-02.zip']
+assert SevenScenesLoader(scenes, split='train', scenes=['chess']).num_images_per_sequence() == [20]
+kwargs = dict(scenes=['chess'], num_context_views=2, image_size=16, progress=False,
+    use_bfloat16=False, device='cpu')
+for procedure in ('standard', 'generated_images', 'pose_refinement'):
+    result = evaluate_sevenscenes(scenes, jobs['t'], jobs['c'], os.path.join(out, procedure),
+        generation_procedure=procedure, num_gen_ctx=1, batch_size=2, **kwargs)
+    assert result['chess']['lpips'] is None and np.isfinite(result['chess']['loc-dist'])
+result = evaluate_sevenscenes_multictx(scenes, jobs['t'], jobs['c'], os.path.join(out, 'e5'),
+    **kwargs)
+assert list(result['chess']) == ['ctx01', 'ctx02']
+result = evaluate_sevenscenes_baseline(scenes, os.path.join(out, 'e6'), scenes=['chess'],
+    baseline='mean', progress=False)
+assert np.isfinite(result['chess']['loc-angle'])
+result = evaluate_transformer_multictx_allimg(loader, jobs['t'], jobs['c'],
+    os.path.join(out, 'e7'), context_views=[0], keep_last_frame=True, num_eval_sequences=1,
+    progress=False, use_bfloat16=False, device='cpu')
+assert np.isfinite(result['ctx01']['psnr'])
+generate_gqn_images(images, os.path.join(out, 'e8'), jobs['t'], jobs['c'], num_eval_sequences=1,
+    progress=False, use_bfloat16=False, device='cpu')
+assert sorted(os.listdir(os.path.join(out, 'e8')))[-2:] == ['gen0.png', 'gt0.png']
 assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
                if sys.modules[m])
 print('ran without jax and viewformer_tpu')

@@ -8,6 +8,12 @@
   evaluate transformer          novel-view synthesis and localization metrics
   evaluate transformer-multictx the metrics of every context size, one pass
   evaluate codebook             the codebook's reconstruction metrics
+  evaluate transformer-multictx-allimg
+                                every frame as query against a fixed context
+  evaluate 7scenes              7-Scenes localization and view synthesis
+  evaluate 7scenes-baseline     7-Scenes localization baselines (no model)
+  evaluate 7scenes-multictx     7-Scenes, the metrics of every context size
+  evaluate generate-gqn-images  renders of a dataset's test sequences
   serve                         the JSONL serving protocol (commands/serve.py)
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
@@ -18,8 +24,11 @@ generate` and the evaluate commands take `--loader NAME` and pass every
 `--loader-<param> VALUE` (or `--loader-<param>=VALUE`) to the loader as
 <param>=VALUE, parsed as a bool, int or float where it reads as one. The
 evaluate commands and generate-codes compute in bf16 (the card's kernels
-take bf16) unless given --fp32, as serve does. The other commands of the
-JAX package are not ported yet.
+take bf16) unless given --fp32, as serve does. `--loader` takes colors,
+dataset, sevenscenes, shapenet, co3d, co3dv2, interiornet and sm7. Not
+ported yet: `evaluate co3d` and `evaluate co3dv2-challenge`, `dataset
+shuffle`, `dataset visualize`, `visualize codebook`, `model info` and
+`download-model`.
 """
 import argparse
 import dataclasses
@@ -93,18 +102,23 @@ def _split_loader_args(argv):
     return rest, loader_kwargs
 
 
-def _add_evaluate_common(parser, transformer=True):
-    parser.add_argument('--loader', dest='loader_name', default='dataset')
+def _add_models(parser, transformer=True):
+    """The flags of a command that loads a codebook (and a transformer)."""
     if transformer:
         parser.add_argument('--transformer-model', required=True)
     parser.add_argument('--codebook-model', required=True)
     parser.add_argument('--job-dir', required=True)
-    parser.add_argument('--num-store-images', type=int, default=100)
-    parser.add_argument('--image-size', type=int, default=None)
     parser.add_argument('--fp32', action='store_true',
                         help='f32 weights (for the CPU: the card\'s kernels take bf16)')
     parser.add_argument('--device', default='cuda',
                         help="where to evaluate: a CUDA device (default) or 'cpu'")
+
+
+def _add_evaluate_common(parser, transformer=True):
+    parser.add_argument('--loader', dest='loader_name', default='dataset')
+    _add_models(parser, transformer)
+    parser.add_argument('--num-store-images', type=int, default=100)
+    parser.add_argument('--image-size', type=int, default=None)
     if transformer:
         parser.add_argument('--batch-size', type=int, default=1)
         parser.add_argument('--num-eval-sequences', type=int, default=None)
@@ -213,6 +227,69 @@ def _parser():
     codebook.add_argument('--batch-size', type=int, default=64)
     codebook.add_argument('--num-eval-images', type=int, default=None)
     codebook.set_defaults(run=_evaluate_codebook)
+
+    allimg = evaluate.add_parser('transformer-multictx-allimg',
+                                 help='Every frame of every sequence as query, one fixed '
+                                      'context.')
+    allimg.add_argument('--loader', dest='loader_name', default='dataset')
+    _add_models(allimg)
+    allimg.add_argument('--context-views', default=None, help='comma-separated frame indices')
+    allimg.add_argument('--pose-multiplier', type=float, default=None)
+    allimg.add_argument('--keep-last-frame', action='store_true')
+    allimg.add_argument('--image-size', type=int, default=None)
+    allimg.add_argument('--num-eval-sequences', type=int, default=None)
+    allimg.set_defaults(run=_evaluate_allimg)
+
+    sevenscenes = evaluate.add_parser('7scenes',
+                                      help='7-Scenes localization and view synthesis.')
+    sevenscenes.add_argument('--path', required=True)
+    _add_models(sevenscenes)
+    sevenscenes.add_argument('--batch-size', type=int, default=1)
+    sevenscenes.add_argument('--image-match-map', default=None)
+    sevenscenes.add_argument('--scenes', default=None, help='comma-separated scene names')
+    sevenscenes.add_argument('--sequence-size', type=int, default=None)
+    sevenscenes.add_argument('--num-eval-sequences', type=int, default=None)
+    sevenscenes.add_argument('--num-store-images', type=int, default=100)
+    sevenscenes.add_argument('--top-n-matched-images', type=int, default=0)
+    sevenscenes.add_argument('--num-gen-ctx', type=int, default=0)
+    sevenscenes.add_argument('--generation-procedure', default='standard',
+                             choices=['standard', 'generated_images', 'pose_refinement'])
+    sevenscenes.add_argument('--pose-multiplier', type=float, default=None)
+    sevenscenes.add_argument('--num-context-views', type=int, default=19)
+    sevenscenes.add_argument('--image-size', type=int, default=128)
+    sevenscenes.set_defaults(run=_evaluate_sevenscenes)
+
+    baseline = evaluate.add_parser('7scenes-baseline',
+                                   help='Non-learned 7-Scenes localization baselines.')
+    baseline.add_argument('--path', required=True)
+    baseline.add_argument('--job-dir', required=True)
+    baseline.add_argument('--image-match-map', default=None)
+    baseline.add_argument('--scenes', default=None)
+    baseline.add_argument('--num-eval-sequences', type=int, default=1000)
+    baseline.add_argument('--top-n-matched-images', type=int, default=0)
+    baseline.add_argument('--baseline', default='position_oracle',
+                          choices=['orientation_oracle', 'position_oracle', 'mean'])
+    baseline.set_defaults(run=_evaluate_sevenscenes_baseline)
+
+    sevenscenes_multictx = evaluate.add_parser(
+        '7scenes-multictx', help='7-Scenes, the metrics of every context size.')
+    sevenscenes_multictx.add_argument('--path', required=True)
+    _add_models(sevenscenes_multictx)
+    sevenscenes_multictx.add_argument('--batch-size', type=int, default=1)
+    sevenscenes_multictx.add_argument('--scenes', default=None)
+    sevenscenes_multictx.add_argument('--num-eval-sequences', type=int, default=100)
+    sevenscenes_multictx.add_argument('--store-ctx', action=argparse.BooleanOptionalAction,
+                                      default=True)
+    sevenscenes_multictx.add_argument('--num-store-images', type=int, default=100)
+    sevenscenes_multictx.add_argument('--num-context-views', type=int, default=19)
+    sevenscenes_multictx.add_argument('--image-size', type=int, default=128)
+    sevenscenes_multictx.set_defaults(run=_evaluate_sevenscenes_multictx)
+
+    gqn = evaluate.add_parser('generate-gqn-images',
+                              help='Renders of test sequences from 3 context frames each.')
+    gqn.add_argument('--dataset-path', required=True)
+    _add_models(gqn)
+    gqn.set_defaults(run=_generate_gqn_images)
 
     serve = groups.add_parser(
         'serve', help='KV-cache serving session: JSON requests on stdin, responses on stdout '
@@ -346,6 +423,62 @@ def _evaluate_codebook(args):
                       batch_size=args.batch_size, num_eval_images=args.num_eval_images,
                       num_store_images=args.num_store_images, image_size=args.image_size,
                       use_bfloat16=not args.fp32, device=args.device)
+
+
+def _models_kwargs(args):
+    return dict(use_bfloat16=not args.fp32, device=args.device)
+
+
+def _scenes(args):
+    return args.scenes.split(',') if args.scenes else None
+
+
+def _evaluate_allimg(args):
+    from .evaluate.multictx_allimg import evaluate_transformer_multictx_allimg
+    context_views = ([int(x) for x in args.context_views.split(',')]
+                     if args.context_views else None)
+    evaluate_transformer_multictx_allimg(
+        _loader(args), args.transformer_model, args.codebook_model, args.job_dir,
+        context_views=context_views, pose_multiplier=args.pose_multiplier,
+        keep_last_frame=args.keep_last_frame, image_size=args.image_size,
+        num_eval_sequences=args.num_eval_sequences, **_models_kwargs(args))
+
+
+def _evaluate_sevenscenes(args):
+    from .evaluate.sevenscenes import evaluate_sevenscenes
+    evaluate_sevenscenes(
+        args.path, args.transformer_model, args.codebook_model, args.job_dir,
+        batch_size=args.batch_size, image_match_map=args.image_match_map,
+        scenes=_scenes(args), sequence_size=args.sequence_size,
+        num_eval_sequences=args.num_eval_sequences, num_store_images=args.num_store_images,
+        top_n_matched_images=args.top_n_matched_images, num_gen_ctx=args.num_gen_ctx,
+        generation_procedure=args.generation_procedure, pose_multiplier=args.pose_multiplier,
+        num_context_views=args.num_context_views, image_size=args.image_size,
+        **_models_kwargs(args))
+
+
+def _evaluate_sevenscenes_baseline(args):
+    from .evaluate.sevenscenes_baseline import evaluate_sevenscenes_baseline
+    evaluate_sevenscenes_baseline(
+        args.path, args.job_dir, image_match_map=args.image_match_map, scenes=_scenes(args),
+        num_eval_sequences=args.num_eval_sequences,
+        top_n_matched_images=args.top_n_matched_images, baseline=args.baseline)
+
+
+def _evaluate_sevenscenes_multictx(args):
+    from .evaluate.sevenscenes_multictx import evaluate_sevenscenes_multictx
+    evaluate_sevenscenes_multictx(
+        args.path, args.transformer_model, args.codebook_model, args.job_dir,
+        batch_size=args.batch_size, scenes=_scenes(args),
+        num_eval_sequences=args.num_eval_sequences, store_ctx=args.store_ctx,
+        num_store_images=args.num_store_images, num_context_views=args.num_context_views,
+        image_size=args.image_size, **_models_kwargs(args))
+
+
+def _generate_gqn_images(args):
+    from .evaluate.generate_images import generate_gqn_images
+    generate_gqn_images(args.dataset_path, args.job_dir, args.transformer_model,
+                        args.codebook_model, **_models_kwargs(args))
 
 
 def _serve(args):

@@ -4,9 +4,9 @@ shuffle_sequences, shuffle_sequence_items, sequence_size, image_size and
 seed, through the wrappers of _wrappers.py unless the loader opts out with a
 _custom_* class attribute.
 
-Ported: colors and dataset. The JAX package's interiornet, sevenscenes,
-shapenet, sm7, co3d and co3dv2 loaders are not ported yet; asking for them
-raises.
+The loaders are imported when first asked for, so the registry imports
+nothing of a loader's own dependencies (co3d's needs facebookresearch's co3d
+code and pytorch3d).
 """
 import importlib
 
@@ -16,8 +16,13 @@ _registry = {}
 _lazy_modules = {
     'colors': ('viewformer_tpu_torch.data.loaders.colors', 'ColorsLoader'),
     'dataset': ('viewformer_tpu_torch.data.loaders.dataset', 'DatasetLoader'),
+    'interiornet': ('viewformer_tpu_torch.data.loaders.interiornet', 'InteriorNetLoader'),
+    'sevenscenes': ('viewformer_tpu_torch.data.loaders.sevenscenes', 'SevenScenesLoader'),
+    'shapenet': ('viewformer_tpu_torch.data.loaders.shapenet', 'ShapenetLoader'),
+    'sm7': ('viewformer_tpu_torch.data.loaders.sm7', 'SM7Loader'),
+    'co3d': ('viewformer_tpu_torch.data.loaders.co3d', 'CO3DLoader'),
+    'co3dv2': ('viewformer_tpu_torch.data.loaders.co3dv2', 'CO3Dv2Loader'),
 }
-_NOT_PORTED = ('co3d', 'co3dv2', 'interiornet', 'sevenscenes', 'shapenet', 'sm7')
 
 
 def _wrap_loader(loader_class):
@@ -76,9 +81,6 @@ def get_loader(name):
     if name not in _registry and name in _lazy_modules:
         module_name, class_name = _lazy_modules[name]
         register_loader(getattr(importlib.import_module(module_name), class_name), name)
-    if name in _NOT_PORTED and name not in _registry:
-        raise NotImplementedError(f'The {name!r} loader is not ported to viewformer_tpu_torch '
-                                  f'yet; ported: {sorted(set(_registry) | set(_lazy_modules))}')
     if name not in _registry:
         raise ValueError(f'Unknown loader {name!r}; available: {get_loader_names()}')
     return _registry[name]
@@ -90,3 +92,14 @@ def build(name, *args, **kwargs):
 
 def get_loader_names():
     return sorted(set(_registry) | set(_lazy_modules))
+
+
+def get_loaders():
+    """{name: constructor} of every loader whose module imports."""
+    loaders = {}
+    for name in get_loader_names():
+        try:
+            loaders[name] = get_loader(name)
+        except ImportError:
+            continue
+    return loaders

@@ -1,8 +1,8 @@
-"""Loader wrappers: shuffling, fixed sequence size, image resize (port of
-viewformer_tpu/data/loaders/_wrappers.py; its LazyArray comes with the
-loaders that make one). A loader is a sequence-indexed mapping: loader[i] ->
-{'cameras': [N, 7] float32, 'frames': [N, H, W, C] uint8, ...}, with
-num_images_per_sequence() and __len__.
+"""Loader wrappers: shuffling, fixed sequence size, image resize, and the
+lazily decoded arrays of the file loaders (port of
+viewformer_tpu/data/loaders/_wrappers.py). A loader is a sequence-indexed
+mapping: loader[i] -> {'cameras': [N, 7] float32, 'frames': [N, H, W, C]
+uint8, ...}, with num_images_per_sequence() and __len__.
 """
 import random
 from functools import lru_cache
@@ -12,6 +12,35 @@ import torch
 
 from ...ops.image import resize
 from ...utils import batch_len
+
+
+class LazyArray:
+    """A list of raw items (file names, indices) read through map_fn when
+    indexed: an int gives one item, a slice or a list of ints their stack;
+    np.asarray reads them all."""
+
+    def __init__(self, array, map_fn):
+        self.array = array
+        self.map_fn = map_fn
+
+    def __getitem__(self, idx):
+        if isinstance(idx, list):
+            return np.stack([self.map_fn(self.array[x]) for x in idx], 0)
+        item = self.array[idx]
+        if isinstance(idx, slice):
+            return np.stack([self.map_fn(x) for x in item], 0)
+        return self.map_fn(item)
+
+    def __len__(self):
+        return len(self.array)
+
+    @property
+    def shape(self):
+        return (len(self.array),) + tuple(self.map_fn(self.array[0]).shape)
+
+    def __array__(self, dtype=None, copy=None):
+        out = np.stack([self.map_fn(x) for x in self.array])
+        return out.astype(dtype) if dtype is not None else out
 
 
 class ChangedImageSizeLoader:
@@ -101,6 +130,8 @@ class ShuffledLoader:
 
     @staticmethod
     def _take(items, indices):
+        if isinstance(items, LazyArray):
+            return LazyArray([items.array[x] for x in indices], items.map_fn)
         if isinstance(items, str):
             return items
         if isinstance(items, np.ndarray):

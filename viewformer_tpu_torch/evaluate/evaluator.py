@@ -12,6 +12,13 @@ from ..utils import metrics as M
 from ..utils.device import resolve_device
 
 
+def _host(images):
+    """numpy or a tensor -> a CPU tensor."""
+    if isinstance(images, torch.Tensor):
+        return images.cpu()
+    return torch.from_numpy(np.ascontiguousarray(images))
+
+
 class Evaluator:
     def __init__(self, image_size=None, device='cuda'):
         self.image_size = image_size
@@ -31,21 +38,19 @@ class Evaluator:
             M.LPIPSMetric('vgg', name='lpips'),
             M.SSIMMetric('ssim')]
 
-    def _images(self, images):
-        if not isinstance(images, torch.Tensor):
-            images = torch.from_numpy(np.ascontiguousarray(images))
-        return images.to(self.device)
-
     def update_with_image(self, ground_truth_images, generated_images):
-        ground_truth_images = self._images(ground_truth_images)
-        generated_images = self._images(generated_images)
+        # resized on the host, as the reference: CUDA's bilinear uint8 resize
+        # rounds otherwise (ops/image.upload_frames)
+        ground_truth_images = _host(ground_truth_images)
+        generated_images = _host(generated_images)
         image_size = self.image_size
         if image_size is None:
             image_size = max(ground_truth_images.shape[-2], generated_images.shape[-2])
-        ground_truth_images = resize(ground_truth_images, image_size)
+        ground_truth_images = resize(ground_truth_images, image_size).to(self.device)
         if generated_images.shape[-2] != image_size:
             # generated images are resized bilinearly, also when upsampled
             generated_images = resize(generated_images, image_size, 'bilinear')
+        generated_images = generated_images.to(self.device)
         for metric in self._image_generation_metrics:
             metric.update_state(ground_truth_images, generated_images)
 

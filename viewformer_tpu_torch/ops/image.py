@@ -56,10 +56,14 @@ def ensure_wire_images(images):
 def upload_frames(images, image_size, device):
     """uint8 (or float in [0, 255]) numpy frames [..., H, W, C] -> a tensor
     on `device`, resized to image_size: uint8 as it is (normalize_images
-    maps it to [-1, 1] there), float mapped to [-1, 1]."""
+    maps it to [-1, 1] there), float mapped to [-1, 1].
+
+    The resize runs on the host, before the copy: CUDA's bilinear uint8
+    resize differs from the CPU kernel's (the reference preprocessing) by
+    1 in up to 2% of the bytes (chip_smoke.py, resize_check)."""
     # a copy when read-only (an image Pillow decoded): torch takes writable arrays
     images = np.require(np.asarray(images), requirements=('C', 'W'))
-    frames = resize(torch.from_numpy(images).to(device), image_size)
+    frames = resize(torch.from_numpy(images), image_size).to(device)
     return frames if frames.dtype == torch.uint8 else frames.float() / 255.0 * 2.0 - 1.0
 
 

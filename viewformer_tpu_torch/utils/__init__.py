@@ -1,5 +1,5 @@
-"""The index-set DSL and the loaders' batch helpers (port of SplitIndices,
-batch_len and batch_slice in viewformer_tpu/utils/__init__.py)."""
+"""The index-set DSL and the loaders' helpers (port of SplitIndices,
+batch_len, batch_slice and unique in viewformer_tpu/utils/__init__.py)."""
 from functools import partial
 
 
@@ -111,3 +111,12 @@ def batch_len(x):
     if isinstance(x, dict):
         return batch_len(next(iter(x.values())))
     return len(x)
+
+
+def unique(iterable):
+    """The items of iterable in order, each once."""
+    seen = set()
+    for x in iterable:
+        if x not in seen:
+            seen.add(x)
+            yield x
