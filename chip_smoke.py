@@ -108,13 +108,39 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      (null), exact launches a batch, a query and a run; one standard query
      on the card (bf16) against the CPU (f32), logits within LOGITS_TOL;
      prints the SceneLookup build, the seconds of a batch and of a query
-     with the device's busy share (torch.profiler), and the peak memory.
+     with the device's busy share (torch.profiler), and the peak memory;
+ 11. the released-checkpoint path and the CO3D evaluators
+     (released_checkpoints_and_co3d), under a temporary HOME: random-weight
+     VQGANConfig() codebooks (RGB, and RGBA for CO3Dv2) saved as
+     `*-codebook-th` dirs (config.json and a Lightning {'state_dict': ...}
+     model.ckpt in the reference's torch names, made by an inverse map kept
+     here, with perceptual_loss.* tensors to be dropped), the RGB one tarred
+     and installed by `download-model --from-file`, then load_model of its
+     name on the card, bit for bit; an MIGTConfig() transformer as the raw
+     keys of a Keras checkpoint (with optimizer and save_counter entries)
+     through resolve_keras_object_paths and import_migt_from_tf into an
+     MIGT on the card, bit for bit, installed as a `*-transformer-tf` dir
+     (a TF checkpoint where tensorflow imports; else load_model reads it
+     through a stand-in read_tf_checkpoint, and a line says so); `model
+     info` of both (totals equal to the models' element counts); evaluate
+     co3d (bf16) over a stub of the co3d harness written here (2
+     categories x 2 sequences of S frames at SIZE px, target first, a stub
+     lpips on the card) and evaluate co3dv2-challenge with the RGBA codebook
+     over a written CO3Dv2 tree (640x480 PNGs and masks, 16-bit depths of
+     320x240; 2 eval batches of S frames and a stub CO3DSubmission):
+     results.json keys and finite values, one add_result a batch at the
+     depth's resolution with a 0/1 mask, exact launches a batch; one CO3D
+     batch on the card (bf16) against the CPU (f32), logits within
+     LOGITS_TOL; prints the seconds of torch.load and of the import of each
+     checkpoint, of a batch of each evaluator with the device's busy share,
+     and the peak memory.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -1320,7 +1346,7 @@ def record_calls(ac, module, name):
         out, launches = launches_of(ac, lambda: fn(*args, **kwargs))
         torch.cuda.synchronize()
         calls.append({'s': time.perf_counter() - t0, 'launches': launches,
-                      'call': lambda: fn(*args, **kwargs)})
+                      'call': lambda: fn(*args, **kwargs), 'args': args})
         return out
     setattr(module, name, wrapped)
     try:
@@ -2267,6 +2293,579 @@ def sevenscenes_and_more(ac, log, card):
     return launches
 
 
+# Phase 11: the released-checkpoint layouts (reference names -> port names),
+# inverted here, independently of the importers: a torch VQ-GAN stage name
+# of the port -> the reference's, and a port MIGT entry -> its Keras name.
+REFERENCE_VQGAN_NAMES = (
+    (r'^(encoder|decoder)\.(down|up)_(\d+)_(block|attn)_(\d+)\.', r'\1.\2.\3.\4.\5.'),
+    (r'^(encoder|decoder)\.(down|up)_(\d+)_(downsample|upsample)\.', r'\1.\2.\3.\4.'),
+    (r'^(encoder|decoder)\.mid_', r'\1.mid.'),
+    (r'^quantizer\.', 'quantize.'),
+)
+
+
+def reference_vqgan_state(state):
+    """A port VQGAN state_dict in the reference's torch names, with
+    perceptual-loss tensors that the importer must drop."""
+    out = {}
+    for key, value in state.items():
+        for pattern, replacement in REFERENCE_VQGAN_NAMES:
+            key = re.sub(pattern, replacement, key)
+        out[key] = value.clone()
+    out['quantize.counter'] = out['quantize.counter'].long()  # torch's default int
+    gen = torch.Generator().manual_seed(3)
+    for i in range(5):
+        out[f'perceptual_loss.net.slice{i}.weight'] = torch.randn(64, 3, 3, 3, generator=gen)
+    return out
+
+
+def keras_migt_variables(state):
+    """A port MIGT state_dict as the raw keys of a Keras save_weights
+    checkpoint (model/<path>/.ATTRIBUTES/VARIABLE_VALUE): a Linear weight
+    transposed to [in, out] and its bias [1, out], a LayerNorm's weight and
+    bias as gamma and beta, h.<i> as h/<i>, wpe as wpe/embeddings; with the
+    optimizer's and save_counter's entries."""
+    out = {}
+    for key, value in state.items():
+        array = value.detach().float().cpu().numpy()
+        *path, leaf = key.split('.')
+        if key == 'wpe':
+            path, leaf = ['wpe'], 'embeddings'
+        elif key == 'pos_ori_weights':
+            path, leaf, array = ['pose_loss_weighting_criterion'], 'pos_ori_weights', array[None]
+        elif path[-1] in ('ln_1', 'ln_2', 'ln_f'):
+            leaf = {'weight': 'gamma', 'bias': 'beta'}[leaf]
+        elif path != ['wte']:
+            array = array.T if leaf == 'weight' else array[None]
+        out['/'.join(['model'] + path + [leaf, '.ATTRIBUTES', 'VARIABLE_VALUE'])] = \
+            np.ascontiguousarray(array)
+    out['optimizer/iter/.ATTRIBUTES/VARIABLE_VALUE'] = np.int64(300000)
+    out['optimizer/learning_rate/.ATTRIBUTES/VARIABLE_VALUE'] = np.float32(6.4e-4)
+    out['save_counter/.ATTRIBUTES/VARIABLE_VALUE'] = np.int64(1)
+    return out
+
+
+def write_tf_checkpoint(tf, raw, directory):
+    """The raw Keras variables as a TF object-graph checkpoint under
+    directory (a tf.Module a path component, 'h.<i>' for a block). Returns
+    the prefix."""
+    root = tf.Module()
+    for key, value in raw.items():
+        parts = [p for p in key.split('/') if p not in ('.ATTRIBUTES', 'VARIABLE_VALUE')]
+        if parts[0] != 'model':
+            continue
+        parts = parts[1:]
+        if parts[0] == 'h':
+            parts = [f'h.{parts[1]}'] + parts[2:]
+        node = root
+        for part in parts[:-1]:
+            if not hasattr(node, part):
+                setattr(node, part, tf.Module())
+            node = getattr(node, part)
+        setattr(node, parts[-1], tf.Variable(value))
+    return tf.train.Checkpoint(model=root).save(os.path.join(directory, 'ckpt'))
+
+
+CO3D_CODE = {
+    'dataset/__init__.py': '',
+    'evaluation/__init__.py': '',
+    'dataset/co3d_dataset.py': '''
+from dataset._fake_data import FakeCo3dDataset
+
+def Co3dDataset(**params):
+    return FakeCo3dDataset(params['subset_lists_file'])
+''',
+    'dataset/dataset_zoo.py': '''
+from dataset._fake_data import FakeCo3dDataset
+
+CO3D_CATEGORIES = ['apple', 'banana']
+DATASET_CONFIGS = {'default': {'image_height': @SIZE@, 'image_width': @SIZE@}}
+
+def dataset_zoo(dataset_name, dataset_root=None, category=None, **kw):
+    assert dataset_name == 'co3d_multisequence', dataset_name
+    return {'test': FakeCo3dDataset(category)}
+''',
+    'dataset/dataloader_zoo.py': '''
+from dataset._fake_data import collate
+
+def dataloader_zoo(datasets, dataset_name):
+    ds = datasets['test']
+    # one batch a sequence, its target frame first (the harness's layout)
+    return {'test': [collate([ds[j] for j in seq]) for seq in ds.sequence_indices()]}
+''',
+    'dataset/_fake_data.py': '''
+import numpy as np
+import torch
+
+SEQUENCES, FRAMES, SIZE = @SEQUENCES@, @FRAMES@, @SIZE@
+
+
+class _Transform:
+    def __init__(self, m):
+        self._m = m
+
+    def get_matrix(self):
+        return self._m
+
+
+class _Camera:
+    def __init__(self, m):
+        self._m = m
+
+    def get_world_to_view_transform(self):
+        return _Transform(self._m)
+
+
+class _FrameData:
+    pass
+
+
+def _make_frame(seq, i, rs):
+    fd = _FrameData()
+    fd.sequence_name = seq
+    y, x = np.mgrid[0:SIZE, 0:SIZE] / SIZE
+    phase = rs.uniform(0, 2 * np.pi, 3)
+    fd.image_rgb = torch.from_numpy((0.5 + 0.4 * np.sin(
+        6 * x[None] + 4 * y[None] + phase[:, None, None])).astype(np.float32))
+    mask = torch.zeros(1, SIZE, SIZE)
+    mask[:, SIZE // 4:3 * SIZE // 4, SIZE // 4:3 * SIZE // 4] = 1.0
+    fd.fg_probability = mask
+    fd.depth_map = torch.from_numpy(rs.rand(1, SIZE, SIZE).astype(np.float32))
+    q, r = np.linalg.qr(rs.randn(3, 3))
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = q * np.sign(np.diag(r))
+    m[3, :3] = rs.randn(3)  # PyTorch3D's row-vector convention
+    fd.camera = _Camera(torch.from_numpy(m)[None])
+    return fd
+
+
+class FakeCo3dDataset:
+    def __init__(self, category):
+        rs = np.random.RandomState(sum(map(ord, str(category))))
+        self._frames = [_make_frame(f'{category}_{s}', i, rs)
+                        for s in range(SEQUENCES) for i in range(FRAMES)]
+
+    def __len__(self):
+        return len(self._frames)
+
+    def __getitem__(self, i):
+        return self._frames[i]
+
+    def sequence_indices(self):
+        return [list(range(s * FRAMES, (s + 1) * FRAMES)) for s in range(SEQUENCES)]
+
+
+def collate(frames):
+    fd = _FrameData()
+    fd.sequence_name = frames[0].sequence_name
+    fd.image_rgb = torch.stack([f.image_rgb for f in frames], 0)
+    fd.fg_probability = torch.stack([f.fg_probability for f in frames], 0)
+    fd.depth_map = torch.stack([f.depth_map for f in frames], 0)
+    fd.camera = _Camera(torch.cat([f.camera._m for f in frames], 0))
+    return fd
+''',
+    'eval_demo.py': '''
+def _print_aggregate_results(task, task_results):
+    pass
+
+
+def aggregate_nvs_results(results):
+    return [x for category_result in results for x in category_result]
+''',
+    'evaluation/evaluate_new_view_synthesis.py': '''
+import collections
+
+import numpy as np
+import torch
+
+NewViewSynthesisPrediction = collections.namedtuple(
+    'NewViewSynthesisPrediction', ['image_render', 'mask_render', 'depth_render'])
+
+
+def eval_batch(frame_data, preds, bg_color='black', lpips_model=None, source_cameras=None):
+    gt = frame_data.image_rgb[:1] * (frame_data.fg_probability[:1] >= 0.5)
+    pred = preds.image_render
+    assert pred.shape == gt.shape, (pred.shape, gt.shape)
+    assert lpips_model.device.startswith('cuda'), lpips_model.device
+    mse = float(torch.mean((pred - gt) ** 2))
+    return {'psnr': -10.0 * np.log10(max(mse, 1e-10)), 'mse': mse,
+            'subset': 'test_known', 'subsubset': 'all'}
+
+
+def summarize_nvs_eval_results(per_batch, task):
+    metrics = {key: float(np.mean([b[key] for b in per_batch])) for key in ('psnr', 'mse')}
+    return per_batch, {'results': [{'subset': 'test_known', 'subsubset': 'all',
+                                    'metrics': metrics}]}
+
+
+def pretty_print_nvs_metrics(results):
+    pass
+''',
+}
+STUBS = {
+    'lpips.py': '''
+class LPIPS:
+    def __init__(self, net=None):
+        assert net == 'vgg', net
+        self.device = 'cpu'
+
+    def to(self, device):
+        self.device = str(device)
+        return self
+''',
+    'co3d/__init__.py': '',
+    'co3d/challenge/__init__.py': '',
+    'co3d/challenge/co3d_submission.py': '''
+import enum
+
+
+class CO3DTask(enum.Enum):
+    FEW_VIEW = 'few_view'
+
+
+class CO3DSequenceSet(enum.Enum):
+    DEV = 'dev'
+    TEST = 'test'
+
+
+EVAL_BATCHES = @EVAL_BATCHES@
+
+
+class CO3DSubmission:
+    def __init__(self, task, sequence_set, output_folder, dataset_root):
+        self.task, self.sequence_set = task, sequence_set
+        self.output_folder, self.dataset_root = output_folder, dataset_root
+        self.results = []
+
+    def get_eval_batches_map(self):
+        # each eval batch of seqA, its target frame first (the official layout)
+        return {('apple', 'fewview_dev'): [
+            [['seqA', fn, 'apple/images/seqA_%d.png' % fn] for fn in batch]
+            for batch in EVAL_BATCHES]}
+
+    def add_result(self, category, subset_name, sequence_name, frame_number, image, mask,
+                   depth):
+        self.results.append(dict(category=category, subset_name=subset_name,
+                                 sequence_name=sequence_name, frame_number=frame_number,
+                                 image=image, mask=mask, depth=depth))
+''',
+}
+# Phase 11: CO3D_CATEGORIES x CO3D_SEQUENCES test batches of S frames at
+# SIZE px; a CO3Dv2 sequence of S + 1 frames of CO3DV2_W x CO3DV2_H with
+# 16-bit depths of CO3DV2_DEPTH_HW, and CO3DV2_BATCHES eval batches of S
+# frames (targets 0 and 1).
+CO3D_CATEGORIES, CO3D_SEQUENCES = 2, 2
+CO3DV2_W, CO3DV2_H, CO3DV2_DEPTH_HW = 640, 480, (240, 320)
+CO3DV2_BATCHES = [[0] + list(range(1, S)), [1, 0] + list(range(2, S))]
+
+
+def write_tree(root, files, replacements):
+    for name, text in files.items():
+        for token, value in replacements.items():
+            text = text.replace(token, str(value))
+        path = os.path.join(root, name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, 'w') as f:
+            f.write(text.lstrip('\n'))
+
+
+def write_co3dv2(root, seed=0):
+    """<root>/apple in the CO3Dv2 layout: frame_annotations.jgz (sequence
+    seqA, S + 1 frames with PyTorch3D viewpoints), images/ (RGB PNGs),
+    masks/ (a centred foreground) and depths/ (16-bit PNGs at
+    CO3DV2_DEPTH_HW)."""
+    import gzip
+
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    category = os.path.join(root, 'apple')
+    for sub in ('images', 'masks', 'depths'):
+        os.makedirs(os.path.join(category, sub))
+    y, x = np.mgrid[0:CO3DV2_H, 0:CO3DV2_W]
+    annotations = []
+    for fn in range(S + 1):
+        paths = {kind: f'apple/{kind}/seqA_{fn}.png' for kind in ('images', 'masks', 'depths')}
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        image = 127.5 + 100 * np.sin(x[..., None] / 53.0 + y[..., None] / 71.0 + phase)
+        Image.fromarray(image.astype(np.uint8)).save(os.path.join(root, paths['images']),
+                                                     compress_level=1)
+        mask = np.zeros((CO3DV2_H, CO3DV2_W), np.uint8)
+        mask[CO3DV2_H // 4:3 * CO3DV2_H // 4, CO3DV2_W // 4:3 * CO3DV2_W // 4] = 255
+        Image.fromarray(mask).save(os.path.join(root, paths['masks']))
+        Image.fromarray(rng.randint(0, 60000, CO3DV2_DEPTH_HW).astype(np.uint16)).save(
+            os.path.join(root, paths['depths']))
+        q, r = np.linalg.qr(rng.randn(3, 3))
+        annotations.append({
+            'sequence_name': 'seqA', 'frame_number': fn, 'image': {'path': paths['images']},
+            'mask': {'path': paths['masks']}, 'depth': {'path': paths['depths']},
+            'viewpoint': {'R': (q * np.sign(np.diag(r))).tolist(), 'T': rng.randn(3).tolist()}})
+    with gzip.open(os.path.join(category, 'frame_annotations.jgz'), 'wt') as f:
+        json.dump(annotations, f)
+
+
+@contextlib.contextmanager
+def keras_reader(raw, tf):
+    """Without tensorflow, utils.convert.read_tf_checkpoint stands in for
+    the TF reader and gives `raw` for a checkpoint prefix named 'model' (the
+    rest of load_model's path runs as it is); with it, nothing changes."""
+    from viewformer_tpu_torch.utils import convert
+
+    original = convert.read_tf_checkpoint
+    if tf is None:
+        def read(prefix):
+            check(os.path.basename(prefix) == 'model', f'unexpected TF prefix {prefix}')
+            return raw
+        convert.read_tf_checkpoint = read
+    try:
+        yield
+    finally:
+        convert.read_tf_checkpoint = original
+
+
+def released_checkpoints_and_co3d(ac, log, card):
+    """Phase 11. Returns the launch counts of its paths."""
+    import io
+    import tarfile
+
+    from viewformer_tpu_torch import cli, models
+    from viewformer_tpu_torch.commands.model_info import model_info
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig, save_config
+    from viewformer_tpu_torch.evaluate import co3d as eco3d
+    from viewformer_tpu_torch.evaluate import co3dv2_challenge as eco3dv2
+    from viewformer_tpu_torch.utils import convert
+
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_released_')
+    home, stubs = os.environ.get('HOME'), os.path.join(tmp, 'stubs')
+    os.environ['HOME'] = os.path.join(tmp, 'home')
+    record = {'phase': 'released_checkpoints_and_co3d', 'card': card}
+    launches = {}
+    try:
+        tf = None
+        try:
+            import tensorflow as tf
+            record['tf_checkpoint'] = f'written and read with tensorflow {tf.__version__}'
+        except ImportError as e:
+            record['tf_checkpoint'] = f'not run: tensorflow does not import here ({e})'
+            print('phase 11: the TF checkpoint step did not run: tensorflow does not import '
+                  f'on this machine ({e}); the Keras variables go to load_model through a '
+                  'stand-in read_tf_checkpoint', flush=True)
+
+        # 1. a *-codebook-th dir, tarred and installed with download-model
+        t0 = time.perf_counter()
+        codebooks = {}
+        for name, config in (('smoke-codebook-th', VQGANConfig()),
+                             ('smoke-rgba-codebook-th', VQGANConfig(in_channels=4, out_ch=4))):
+            source = models.AutoModel.from_config(config, torch.float32, 'cpu',
+                                                  torch.Generator().manual_seed(0))
+            path = os.path.join(tmp, name)
+            save_config(config, path)
+            torch.save({'state_dict': reference_vqgan_state(source.state_dict()), 'epoch': 9,
+                        'global_step': 300000}, os.path.join(path, 'model.ckpt'))
+            codebooks[name] = (source.state_dict(), path)
+        tar = os.path.join(tmp, 'smoke-codebook-th.tar')
+        with tarfile.open(tar, 'w') as f:
+            for member in sorted(os.listdir(codebooks['smoke-codebook-th'][1])):
+                f.add(os.path.join(codebooks['smoke-codebook-th'][1], member), arcname=member)
+        record['codebook_write_s'] = time.perf_counter() - t0
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(['download-model', 'smoke-codebook-th', '--from-file', tar])
+        installed = os.path.join(tmp, 'home', '.cache', 'viewformer', 'smoke-codebook-th')
+        check(out.getvalue().strip() == f'Installed at {installed}',
+              f'download-model printed {out.getvalue()!r}')
+        # torch.load, then the import into a model on the card (as load_model)
+        t0 = time.perf_counter()
+        checkpoint = convert.load_torch_checkpoint(os.path.join(installed, 'model.ckpt'))
+        record['codebook_torch_load_s'] = time.perf_counter() - t0
+        target = models.AutoModel.from_config(VQGANConfig(), torch.float32, 'cuda')
+        t0 = time.perf_counter()
+        convert.import_vqgan_from_torch(checkpoint, VQGANConfig(), target)
+        record['codebook_import_s'] = time.perf_counter() - t0
+        del checkpoint, target
+        t0 = time.perf_counter()
+        loaded = models.load_model('smoke-codebook-th', torch.float32, 'cuda')
+        torch.cuda.synchronize()
+        record['codebook_load_model_s'] = time.perf_counter() - t0
+        expected = codebooks['smoke-codebook-th'][0]
+        state = loaded.state_dict()
+        check(list(state) == list(expected), 'the imported codebook has other entries')
+        differing = [k for k, v in expected.items()
+                     if state[k].dtype != v.dtype or not torch.equal(state[k].cpu(), v)]
+        check(not differing, f'the imported codebook differs in {differing[:5]}')
+        check(state['quantizer.embeddings'].is_cuda, 'load_model did not load onto the card')
+        del loaded, state
+
+        # 2. the transformer: raw Keras variables, resolved and imported on the card
+        source = models.AutoModel.from_config(MIGTConfig(), torch.float32, 'cpu',
+                                              torch.Generator().manual_seed(1))
+        expected = source.state_dict()
+        raw = keras_migt_variables(expected)
+        on_card = models.AutoModel.from_config(MIGTConfig(), torch.float32, 'cuda',
+                                               torch.Generator().manual_seed(0))
+        t0 = time.perf_counter()
+        resolved = convert.resolve_keras_object_paths(raw)
+        imported = convert.import_migt_from_tf(resolved, MIGTConfig(), on_card)
+        record['transformer_resolve_and_import_s'] = time.perf_counter() - t0
+        on_card.load_state_dict(imported)
+        state = on_card.state_dict()
+        differing = [k for k, v in expected.items() if not torch.equal(state[k].cpu(), v)]
+        check(list(state) == list(expected) and not differing,
+              f'the imported transformer differs in {differing[:5]}')
+        del on_card, state, imported
+        transformer_dir = os.path.join(tmp, 'smoke-transformer-tf')
+        save_config(MIGTConfig(), transformer_dir)
+        if tf is not None:
+            t0 = time.perf_counter()
+            prefix = write_tf_checkpoint(tf, raw, transformer_dir)
+            record['tf_write_s'] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            convert.read_tf_checkpoint(prefix)
+            record['transformer_tf_read_s'] = time.perf_counter() - t0
+        else:
+            open(os.path.join(transformer_dir, 'model.index'), 'wb').close()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(['download-model', 'smoke-transformer-tf', '--from-file', transformer_dir])
+
+        with keras_reader(raw, tf):
+            t0 = time.perf_counter()
+            transformer = models.load_model('smoke-transformer-tf', torch.float32, 'cuda')
+            torch.cuda.synchronize()
+            record['transformer_load_model_s'] = time.perf_counter() - t0
+            state = transformer.state_dict()
+            check(all(torch.equal(state[k].cpu(), v) for k, v in expected.items()),
+                  'load_model of the installed transformer differs from its source')
+            del transformer, state
+
+            # 3. model info on both
+            totals = {}
+            for name, expected_total in (
+                    ('smoke-codebook-th', sum(v.numel() for v in codebooks[
+                        'smoke-codebook-th'][0].values())),
+                    ('smoke-transformer-tf', sum(v.numel() for v in expected.values()))):
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    totals[name] = model_info(name)
+                lines = out.getvalue().strip().splitlines()
+                check(totals[name] == expected_total
+                      and lines[-1] == f'total: {expected_total:,} parameters',
+                      f'model info {name}: {totals[name]} != {expected_total}')
+            record['model_info_totals'] = totals
+            torch.cuda.empty_cache()
+
+            # 4. evaluate co3d over the stub harness (bf16, the kernels)
+            write_tree(os.path.join(tmp, 'home', '.cache', 'viewformer', 'co3d'), CO3D_CODE,
+                       {'@SIZE@': SIZE, '@SEQUENCES@': CO3D_SEQUENCES, '@FRAMES@': S})
+            write_tree(stubs, STUBS, {'@EVAL_BATCHES@': CO3DV2_BATCHES})
+            sys.path.insert(0, stubs)
+            importlib.invalidate_caches()
+            n_layer = MIGTConfig().n_layer
+            per_batch = only(ac, block_causal_attention_fwd=n_layer - 1,
+                             branch_attention_fwd=2 * n_layer)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ac.reset_launch_counts()
+            t0 = time.perf_counter()
+            with record_calls(ac, eco3d, 'generate_batch_predictions') as batches, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                result = eco3d.evaluate_co3d('/co3d-data', 'smoke-transformer-tf',
+                                             'smoke-codebook-th', os.path.join(tmp, 'co3d'),
+                                             progress=False)
+            record['co3d_run_s'] = time.perf_counter() - t0
+            launches['co3d'] = counts(ac)
+            n_batches = CO3D_CATEGORIES * CO3D_SEQUENCES
+            check(list(result) == ['test_known_all']
+                  and list(result['test_known_all']) == ['psnr', 'mse']
+                  and all(np.isfinite(v) for v in result['test_known_all'].values()),
+                  f'co3d results {result}')
+            with open(os.path.join(tmp, 'co3d', 'results.json')) as f:
+                check(json.load(f) == result, 'co3d results.json differs from the result')
+            with open(os.path.join(tmp, 'co3d', 'results-co3d.json')) as f:
+                check(len(json.load(f)['multisequence']) == CO3D_CATEGORIES,
+                      'results-co3d.json has another number of categories')
+            check(len(batches) == n_batches, f'co3d: {len(batches)} batches')
+            for i, b in enumerate(batches):
+                check(b['launches'] == per_batch, f'co3d batch {i}: {b["launches"]}')
+                check(b['args'][2].shape == (1, S, SIZE, SIZE, 3), f'co3d batch {i} frames')
+            check(launches['co3d'] == {k: n_batches * v for k, v in per_batch.items()},
+                  f'co3d launches {launches["co3d"]}')
+            wall, busy = device_share(batches[0]['call'])
+            record['co3d'] = {'batches': n_batches, 'batch_s': [b['s'] for b in batches],
+                              'launches_per_batch': [b['launches'] for b in batches],
+                              'profiled_batch_s': wall, 'device_busy_s': busy,
+                              'device_share': busy / wall, 'result': result}
+
+            # 5. evaluate co3dv2-challenge with an RGBA codebook
+            co3dv2 = os.path.join(tmp, 'co3dv2')
+            write_co3dv2(co3dv2)
+            ac.reset_launch_counts()
+            t0 = time.perf_counter()
+            with record_calls(ac, eco3dv2, 'generate_batch_predictions') as v2_batches:
+                submission = eco3dv2.evaluate_co3dv2_challenge(
+                    co3dv2, 'smoke-transformer-tf', codebooks['smoke-rgba-codebook-th'][1],
+                    os.path.join(tmp, 'submission'), progress=False)
+            record['co3dv2_run_s'] = time.perf_counter() - t0
+            launches['co3dv2-challenge'] = counts(ac)
+            check(len(v2_batches) == len(submission.results) == len(CO3DV2_BATCHES),
+                  f'co3dv2: {len(v2_batches)} batches, {len(submission.results)} results')
+            for i, (b, r) in enumerate(zip(v2_batches, submission.results)):
+                check(b['launches'] == per_batch, f'co3dv2 batch {i}: {b["launches"]}')
+                check(b['args'][2].shape == (1, S, SIZE, SIZE, 4), f'co3dv2 batch {i} frames')
+                check((r['category'], r['subset_name'], r['sequence_name'], r['frame_number'])
+                      == ('apple', 'fewview_dev', 'seqA', CO3DV2_BATCHES[i][0]),
+                      f'co3dv2 result {i} keys')
+                check(r['image'].shape == (3,) + CO3DV2_DEPTH_HW
+                      and r['mask'].shape == (1,) + CO3DV2_DEPTH_HW
+                      and r['depth'].shape == (1,) + CO3DV2_DEPTH_HW,
+                      f'co3dv2 result {i} shapes {r["image"].shape} {r["mask"].shape}')
+                check(np.isfinite(r['image']).all() and r['image'].min() >= 0
+                      and r['image'].max() <= 1, f'co3dv2 result {i} image values')
+                check(set(np.unique(r['mask']).tolist()) <= {0.0, 1.0},
+                      f'co3dv2 result {i} mask values')
+            wall, busy = device_share(v2_batches[0]['call'])
+            record['co3dv2'] = {'batches': len(v2_batches), 'batch_s': [b['s'] for b in v2_batches],
+                                'launches_per_batch': [b['launches'] for b in v2_batches],
+                                'mask_ones': [float(r['mask'].mean()) for r in submission.results],
+                                'profiled_batch_s': wall, 'device_busy_s': busy,
+                                'device_share': busy / wall}
+            record['max_memory_allocated_gb'] = torch.cuda.max_memory_allocated() / 1e9
+
+            # 6. one CO3D batch, card (bf16, kernels) against CPU (f32, plain)
+            images, cameras = batches[0]['args'][2:4]
+            card_vs_cpu((models.load_model('smoke-transformer-tf', torch.bfloat16, 'cuda'),
+                         models.load_model('smoke-codebook-th', torch.bfloat16, 'cuda')),
+                        (models.load_model('smoke-transformer-tf', torch.float32, 'cpu'),
+                         models.load_model('smoke-codebook-th', torch.float32, 'cpu')),
+                        log, images, cameras, phase='co3d_card_vs_cpu')
+    finally:
+        if stubs in sys.path:
+            sys.path.remove(stubs)
+        for name in list(sys.modules):
+            if name.split('.')[0] in ('dataset', 'evaluation', 'eval_demo', 'lpips', 'co3d'):
+                del sys.modules[name]
+        if home is None:
+            os.environ.pop('HOME', None)
+        else:
+            os.environ['HOME'] = home
+        shutil.rmtree(tmp, ignore_errors=True)
+    record['launches'] = launches
+    record['expected_per_batch'] = per_batch
+    emit(record, log)
+    print(f'released checkpoints: codebook torch.load {record["codebook_torch_load_s"]:.3f} s + '
+          f'import {record["codebook_import_s"]:.3f} s (load_model to the card '
+          f'{record["codebook_load_model_s"]:.3f} s); transformer resolve + import '
+          f'{record["transformer_resolve_and_import_s"]:.3f} s'
+          + (f', TF read {record["transformer_tf_read_s"]:.3f} s' if tf is not None else
+             ' (no TF read)')
+          + f' (load_model to the card {record["transformer_load_model_s"]:.3f} s); '
+          f'CO3D batch {statistics.median(record["co3d"]["batch_s"]):.4f} s (device share '
+          f'{record["co3d"]["device_share"]:.3f}); CO3Dv2 eval batch '
+          f'{statistics.median(record["co3dv2"]["batch_s"]):.4f} s (device share '
+          f'{record["co3dv2"]["device_share"]:.3f}); peak '
+          f'{record["max_memory_allocated_gb"]:.3f} GB ({card})', flush=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -2319,6 +2918,8 @@ def main():
     launches['codebook_pipeline'] = codebook_pipeline(ac, log, card)
     torch.cuda.empty_cache()
     launches.update(sevenscenes_and_more(ac, log, card))
+    torch.cuda.empty_cache()
+    launches.update(released_checkpoints_and_co3d(ac, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

@@ -4,8 +4,9 @@ dropout, the reader, checkpoints and train_transformer with a resume, a
 serving session, the colors loader and the three evaluators, the tiny
 pipeline dataset generate -> train codebook -> generate-codes -> train
 transformer -> evaluate codebook through the CLI, ArchiveStore and the
-7-Scenes loader, and the 7-Scenes, allimg and generate-gqn-images
-evaluators, with viewformer_tpu, jax and flax blocked), and chip_smoke.py's
+7-Scenes loader, the 7-Scenes, allimg and generate-gqn-images
+evaluators, and a released-layout codebook installed by pull_checkpoint and
+read by load_model, with viewformer_tpu, jax and flax blocked), and chip_smoke.py's
 refusal to run without a card."""
 import os
 import shutil
@@ -237,6 +238,24 @@ assert np.isfinite(result['ctx01']['psnr'])
 generate_gqn_images(images, os.path.join(out, 'e8'), jobs['t'], jobs['c'], num_eval_sequences=1,
     progress=False, use_bfloat16=False, device='cpu')
 assert sorted(os.listdir(os.path.join(out, 'e8')))[-2:] == ['gen0.png', 'gt0.png']
+import re
+from viewformer_tpu_torch.config import save_config
+from viewformer_tpu_torch.models import load_model
+from viewformer_tpu_torch.utils import pull_checkpoint
+reference = {{}}
+for key, value in codebook.state_dict().items():
+    key = re.sub(r'^(encoder|decoder)[.](down|up)_(\\d+)_(block|attn)_(\\d+)[.]', r'\\1.\\2.\\3.\\4.\\5.', key)
+    key = re.sub(r'^(encoder|decoder)[.](down|up)_(\\d+)_(downsample|upsample)[.]', r'\\1.\\2.\\3.\\4.', key)
+    key = re.sub(r'^(encoder|decoder)[.]mid_', r'\\1.mid.', key)
+    reference[re.sub(r'^quantizer[.]', 'quantize.', key)] = value
+released = os.path.join(out, 'released')
+save_config(codebook.config, released)
+torch.save({{'state_dict': reference}}, os.path.join(released, 'model.ckpt'))
+os.environ['HOME'] = os.path.join(out, 'home')
+pull_checkpoint('tiny-codebook-th', local_source=released)
+loaded = load_model('tiny-codebook-th', device='cpu').state_dict()
+assert list(loaded) == list(codebook.state_dict())
+assert all(torch.equal(loaded[k], v) for k, v in codebook.state_dict().items())
 assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
                if sys.modules[m])
 print('ran without jax and viewformer_tpu')

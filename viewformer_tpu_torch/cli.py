@@ -14,7 +14,11 @@
   evaluate 7scenes-baseline     7-Scenes localization baselines (no model)
   evaluate 7scenes-multictx     7-Scenes, the metrics of every context size
   evaluate generate-gqn-images  renders of a dataset's test sequences
+  evaluate co3d                 the official CO3D harness over the predictions
+  evaluate co3dv2-challenge     an official CO3Dv2 few-view submission
   serve                         the JSONL serving protocol (commands/serve.py)
+  model info                    the parameter count of a checkpoint's model
+  download-model                install a released checkpoint from a local file
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
 without the TPU-only --steps-per-call, --seq-parallelism and
@@ -25,10 +29,11 @@ generate` and the evaluate commands take `--loader NAME` and pass every
 <param>=VALUE, parsed as a bool, int or float where it reads as one. The
 evaluate commands and generate-codes compute in bf16 (the card's kernels
 take bf16) unless given --fp32, as serve does. `--loader` takes colors,
-dataset, sevenscenes, shapenet, co3d, co3dv2, interiornet and sm7. Not
-ported yet: `evaluate co3d` and `evaluate co3dv2-challenge`, `dataset
-shuffle`, `dataset visualize`, `visualize codebook`, `model info` and
-`download-model`.
+dataset, sevenscenes, shapenet, co3d, co3dv2, interiornet and sm7. A
+--transformer-model, --codebook-model or --model is a path or the name of a
+released checkpoint installed by `download-model NAME --from-file PATH`
+(the port downloads nothing). Not ported yet: `dataset shuffle`, `dataset
+visualize` and `visualize codebook`.
 """
 import argparse
 import dataclasses
@@ -291,6 +296,38 @@ def _parser():
     _add_models(gqn)
     gqn.set_defaults(run=_generate_gqn_images)
 
+    co3d = evaluate.add_parser('co3d', help='CO3D evaluation through the official harness.')
+    co3d.add_argument('--path', required=True)
+    _add_models(co3d)
+    co3d.add_argument('--categories', default=None, help='comma-separated categories')
+    co3d.add_argument('--single-sequence-evaluation', action='store_true',
+                      help='accepted and unused, as in the reference')
+    co3d.set_defaults(run=_evaluate_co3d)
+
+    co3dv2 = evaluate.add_parser('co3dv2-challenge',
+                                 help='Build a CO3Dv2 few-view challenge submission.')
+    co3dv2.add_argument('--path', required=True)
+    _add_models(co3dv2)
+    co3dv2.add_argument('--categories', default=None, help='comma-separated categories')
+    co3dv2.set_defaults(run=_evaluate_co3dv2_challenge)
+
+    model = groups.add_parser('model', help='model utilities').add_subparsers(
+        dest='command', required=True)
+    info = model.add_parser('info', help='Parameter-count tree for a checkpoint.')
+    info.add_argument('--model', dest='checkpoint', required=True)
+    info.add_argument('--device', default='cuda',
+                      help="where to load the model: a CUDA device (default) or 'cpu'")
+    info.set_defaults(run=_model_info)
+
+    download = groups.add_parser(
+        'download-model', help='Install a released checkpoint into ~/.cache/viewformer.')
+    download.add_argument('checkpoint')
+    download.add_argument('--from-file', default=None,
+                          help='the <checkpoint>.tar.gz or extracted directory to install '
+                               'from (the port downloads nothing)')
+    download.add_argument('--override', action='store_true', help='replace a cached copy')
+    download.set_defaults(run=_download_model)
+
     serve = groups.add_parser(
         'serve', help='KV-cache serving session: JSON requests on stdin, responses on stdout '
                       '(the protocol is in viewformer_tpu_torch/commands/serve.py).')
@@ -479,6 +516,37 @@ def _generate_gqn_images(args):
     from .evaluate.generate_images import generate_gqn_images
     generate_gqn_images(args.dataset_path, args.job_dir, args.transformer_model,
                         args.codebook_model, **_models_kwargs(args))
+
+
+def _evaluate_co3d(args):
+    from .evaluate.co3d import evaluate_co3d
+    evaluate_co3d(args.path, args.transformer_model, args.codebook_model, args.job_dir,
+                  categories=args.categories.split(',') if args.categories else None,
+                  single_sequence_evaluation=args.single_sequence_evaluation,
+                  **_models_kwargs(args))
+
+
+def _evaluate_co3dv2_challenge(args):
+    from .evaluate.co3dv2_challenge import evaluate_co3dv2_challenge
+    evaluate_co3dv2_challenge(args.path, args.transformer_model, args.codebook_model,
+                              args.job_dir,
+                              categories=args.categories.split(',') if args.categories else None,
+                              **_models_kwargs(args))
+
+
+def _model_info(args):
+    from .commands.model_info import model_info
+    model_info(args.checkpoint, device=args.device)
+
+
+def _download_model(args):
+    import os
+
+    from .utils import pull_checkpoint
+    if args.from_file is not None and not os.path.exists(args.from_file):
+        raise SystemExit(f'--from-file {args.from_file}: no such file or directory')
+    path = pull_checkpoint(args.checkpoint, override=args.override, local_source=args.from_file)
+    print(f'Installed at {path}')
 
 
 def _serve(args):

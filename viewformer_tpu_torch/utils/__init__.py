@@ -1,5 +1,9 @@
-"""The index-set DSL and the loaders' helpers (port of SplitIndices,
-batch_len, batch_slice and unique in viewformer_tpu/utils/__init__.py)."""
+"""The index-set DSL, the loaders' helpers and the checkpoint cache (port of
+SplitIndices, batch_len, batch_slice, unique and pull_checkpoint in
+viewformer_tpu/utils/__init__.py)."""
+import os
+import shutil
+import tarfile
 from functools import partial
 
 
@@ -120,3 +124,40 @@ def unique(iterable):
         if x not in seen:
             seen.add(x)
             yield x
+
+
+def pull_checkpoint(checkpoint, override=False, local_source=None):
+    """Install the released checkpoint `checkpoint` into
+    ~/.cache/viewformer/<checkpoint> and return that path; a cached copy is
+    returned as it is unless `override`.
+
+    local_source: a `<checkpoint>.tar.gz` (extracted into a temporary
+    directory with the 'data' filter, which refuses members that escape it,
+    then renamed into place, so a failed extraction leaves no cache entry)
+    or a directory holding the extracted checkpoint (copied). The port has
+    no network download: without local_source an uncached checkpoint
+    raises."""
+    local_path = os.path.expanduser(f'~/.cache/viewformer/{checkpoint}')
+    if os.path.exists(local_path) and not override:
+        return local_path
+    if local_source is None:
+        raise FileNotFoundError(
+            f'checkpoint {checkpoint!r} is not installed under {local_path}; install it from '
+            f'its .tar.gz or extracted directory with `python -m viewformer_tpu_torch '
+            f'download-model {checkpoint} --from-file PATH` (the port downloads nothing)')
+    if os.path.exists(local_path):
+        shutil.rmtree(local_path)
+    if os.path.isdir(local_source):
+        shutil.copytree(local_source, local_path)
+        return local_path
+    tmp_path = local_path + '.tmp-extract'
+    shutil.rmtree(tmp_path, ignore_errors=True)
+    os.makedirs(tmp_path)
+    try:
+        with tarfile.open(local_source, mode='r:*') as tfile:
+            tfile.extractall(tmp_path, filter='data')
+        os.replace(tmp_path, local_path)
+    except Exception:
+        shutil.rmtree(tmp_path, ignore_errors=True)
+        raise
+    return local_path
