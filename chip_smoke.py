@@ -133,7 +133,26 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      batch on the card (bf16) against the CPU (f32), logits within
      LOGITS_TOL; prints the seconds of torch.load and of the import of each
      checkpoint, of a batch of each evaluator with the device's busy share,
-     and the peak memory.
+     and the peak memory;
+ 12. every remat policy, data parallel and the rest of the CLI
+     (remat_ddp_and_cli): (a) the default recipe (MIGTConfig(), dropout
+     0.1, B=64, S=20) for 3 steps under each remat policy (full twice,
+     attn, attn_mlp, dots, nothing) from the same weights, batches and seed
+     words: the losses and parameters of each policy against full's (bit
+     for bit when full repeats bit for bit), the step seconds, the peak
+     memory and the exact launches of B1-B8 (B5/B7 once a layer and step
+     under attn and attn_mlp, twice under the others); (b) train_transformer
+     (MIGTConfig() at 2 layers, 2 steps of 64 sequences) and train_codebook
+     (VQGANConfig(), 2 steps of 32 images, random LPIPS) in an NCCL process
+     group of one rank, initialized here, against the same runs without a
+     process group: parameters and losses bit for bit, exact launches, and
+     the group's job dirs restore the final parameters; (c) `dataset
+     shuffle` over (b)'s image dataset (the records, undecoded, in another
+     order within the shard limit), `visualize codebook --output` with a
+     random-weight VQGANConfig() codebook on the card (the grid's originals
+     and reconstructions against a direct reconstruction), and `dataset
+     visualize`: its PNG where matplotlib imports, else the ImportError
+     that says it is missing (a line says which).
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -242,6 +261,15 @@ CB_CODES_EQUAL, EMA_TOL = 0.9, 5e-2
 # with keep_last_frame), generate-gqn-images over GQN_SEQUENCES of them.
 SEVEN_TRAIN, SEVEN_TEST, SEVEN_W, SEVEN_H = 200, 40, 640, 480
 SEVEN_QUERIES, SEVEN_SPECIAL, ALLIMG_SEQUENCES, GQN_SEQUENCES = 32, 2, 2, 3
+# Phase 12: REMAT_STEPS default-recipe steps of TRAIN_B sequences under each
+# of REMAT_POLICIES (warmup_steps=1: the first update at lr 0); the data
+# parallel runs of train_transformer at DDP_LAYERS layers for DDP_STEPS
+# steps of TRAIN_B sequences, and of train_codebook for DDP_STEPS steps of
+# DDP_CB_BATCH images from DDP_CB_SEQUENCES colors sequences a split of
+# CB_FRAMES frames; `visualize codebook` over VIZ_IMAGES frames.
+REMAT_POLICIES, REMAT_STEPS = ('full', 'attn', 'attn_mlp', 'dots', 'nothing'), 3
+DDP_LAYERS, DDP_STEPS, DDP_CB_BATCH = 2, 2, 32
+DDP_CB_SEQUENCES, VIZ_IMAGES = {'train': 4, 'test': 2}, 16
 
 
 def compared(n_layer):
@@ -2866,6 +2894,314 @@ def released_checkpoints_and_co3d(ac, log, card):
     return launches
 
 
+def remat_launches(ac, config, steps, saves_attention):
+    """The launches of `steps` default-recipe train steps: per layer and
+    step the forward kernels B5/B7 run in the forward, and again in the
+    remat recompute unless the policy saves their outputs; the backward
+    B8 once, B6 once but in the last layer (its stream-0 output reaches no
+    loss)."""
+    n = config.n_layer * steps
+    forward = n if saves_attention else 2 * n
+    return only(ac, block_causal_attention_dropout_fwd=forward,
+                branch_attention_dropout_fwd=forward,
+                block_causal_attention_dropout_bwd=n - steps,
+                branch_attention_dropout_bwd=n)
+
+
+def max_difference(params, reference):
+    return max((params[name] - reference[name]).abs().max().item() for name in reference)
+
+
+def remat_policies(ac, log, card):
+    """Phase 12 (a). Returns {'remat_<policy>': launches}."""
+    from viewformer_tpu_torch.config import MIGTConfig
+    from viewformer_tpu_torch.train.transformer import (init_transformer_state,
+                                                        make_transformer_train_step)
+
+    config = MIGTConfig()
+    check(config.dropout == RATE, f'MIGTConfig().dropout is {config.dropout}, not {RATE}')
+    batches = [train_batch(TRAIN_B, 300 + i, 'cuda') for i in range(REMAT_STEPS)]
+
+    def run(policy, batches):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, state = init_transformer_state(config, torch.Generator().manual_seed(0),
+                                              torch.bfloat16, 'cuda', warmup_steps=1,
+                                              remat_policy=policy)
+        step = make_transformer_train_step(model, config)
+        ac.reset_launch_counts()
+        losses, step_s = [], []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, torch.Generator().manual_seed(i))
+            losses.append(metrics['loss'].item())  # waits for the step
+            step_s.append(time.perf_counter() - t0)
+        launches = counts(ac)
+        params = {name: p.detach().clone() for name, p in model.named_parameters()}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del model, state, step
+        return {'losses': losses, 'params': params, 'step_s': step_s, 'peak_gb': peak,
+                'launches': launches}
+
+    full = run('full', batches)
+    repeat = run('full', batches)
+    repeat_diff = max_difference(repeat.pop('params'), full['params'])
+    repeat_loss_diff = max(abs(a - b) for a, b in zip(repeat['losses'], full['losses']))
+    record = {'phase': 'remat_policies', 'card': card, 'batch': TRAIN_B,
+              'frames_per_sequence': S, 'steps': REMAT_STEPS, 'dropout': config.dropout,
+              'full_repeat_max_abs_param_diff': repeat_diff,
+              'full_repeat_max_loss_diff': repeat_loss_diff, 'policies': {}}
+    launches = {}
+    for policy in REMAT_POLICIES:
+        reference, batch_size = full, TRAIN_B
+        if policy == 'full':
+            result = full
+        else:
+            try:
+                result = run(policy, batches)
+            except torch.cuda.OutOfMemoryError:
+                # dots keeps every product: at the largest batch that fits,
+                # against full at that batch
+                check(policy == 'dots', f'remat policy {policy} ran out of memory')
+                batch_size = TRAIN_B // 2
+                half = [tuple(x[:batch_size] for x in batch) for batch in batches]
+                reference = run('full', half)
+                result = run(policy, half)
+        diff = max_difference(result['params'], reference['params'])
+        loss_diff = max(abs(a - b) for a, b in zip(result['losses'], reference['losses']))
+        expected = remat_launches(ac, config, REMAT_STEPS, policy in ('attn', 'attn_mlp'))
+        record['policies'][policy] = {
+            'batch': batch_size, 'losses': result['losses'], 'max_abs_param_diff_vs_full': diff,
+            'max_loss_diff_vs_full': loss_diff, 'step_s': result['step_s'],
+            'step_s_median': statistics.median(result['step_s']), 'peak_gb': result['peak_gb'],
+            'launches': result['launches'], 'expected_launches': expected}
+        launches[f'remat_{policy}'] = result['launches']
+        check(all(np.isfinite(result['losses'])), f'{policy}: non-finite losses')
+        check(result['launches'] == expected,
+              f'{policy}: launches {result["launches"]} != {expected}')
+        # every policy computes the same function; it differs from full no
+        # more than full differs from itself
+        check(diff <= repeat_diff and loss_diff <= repeat_loss_diff,
+              f'{policy}: parameters {diff} and losses {loss_diff} from full, which repeats '
+              f'within {repeat_diff} and {repeat_loss_diff}')
+        del result
+    emit(record, log)
+    del full
+    torch.cuda.empty_cache()
+    return launches
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def ddp_world_one(ac, tmp, log, card):
+    """Phase 12 (b): train_transformer and train_codebook without and in a
+    one-rank NCCL process group. Returns (the image dataset, launches)."""
+    import torch.distributed as dist
+
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
+    from viewformer_tpu_torch.data.dataset import generate_dataset_from_loader
+    from viewformer_tpu_torch.data.loaders import build
+    from viewformer_tpu_torch.parallel import distributed
+    from viewformer_tpu_torch.train import codebook as cb
+    from viewformer_tpu_torch.train import transformer as ttt
+    from viewformer_tpu_torch.train.checkpoint import restore_checkpoint
+
+    tokens = write_token_dataset(os.path.join(tmp, 'tokens'))
+    images = os.path.join(tmp, 'images')
+    for split, n in DDP_CB_SEQUENCES.items():
+        loader = build('colors', split=split, num_sequences=n, sequence_size=CB_FRAMES,
+                       image_size=SIZE)
+        generate_dataset_from_loader(loader, split, os.path.join(images, 'colors'),
+                                     max_sequences_per_shard=1, progress=False)
+    transformer_config = dataclasses.replace(MIGTConfig(), n_layer=DDP_LAYERS)
+    lpips = random_lpips()
+
+    def transformer(job):
+        ac.reset_launch_counts()
+        model, state = ttt.train_transformer(
+            transformer_config, tokens, job, total_steps=DDP_STEPS, epochs=1,
+            batch_size=TRAIN_B, progress=False, log_every=1, profile_batch=0, device='cuda')
+        return model, state.step, counts(ac)
+
+    def codebook(job):
+        # cuDNN's default convolution backward algorithms may add with
+        # atomics, so two plain runs need not agree bit for bit; both runs
+        # take the deterministic algorithms here
+        load, deterministic = cb.load_lpips, torch.backends.cudnn.deterministic
+        cb.load_lpips = lambda net='vgg': lpips
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            model, state = cb.train_codebook(
+                VQGANConfig(), images, job, total_steps=DDP_STEPS, epochs=1,
+                batch_size=DDP_CB_BATCH, progress=False, log_every=1, num_val_batches=1,
+                profile_batch=0, device='cuda')
+        finally:
+            cb.load_lpips, torch.backends.cudnn.deterministic = load, deterministic
+            torch.use_deterministic_algorithms(False)
+        return model, state.step, None
+
+    runs, times = {}, {}
+    for grouped in (False, True):
+        if grouped:
+            os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(free_port()))
+            torch.cuda.set_device(0)
+            dist.init_process_group('nccl', rank=0, world_size=1)
+        try:
+            check(distributed.world_size() == 1 and distributed.is_initialized() == grouped,
+                  'process group state')
+            for name, fn in (('transformer', transformer), ('codebook', codebook)):
+                job = os.path.join(tmp, f'{name}-{"nccl" if grouped else "plain"}')
+                t0 = time.perf_counter()
+                runs[name, grouped] = fn(job) + (job,)
+                times[f'{name}_{"nccl" if grouped else "plain"}_s'] = time.perf_counter() - t0
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+
+    def losses(job):
+        return [r for key, r in sorted(read_metrics(job).items()) if key[1] == 'train']
+
+    record = {'phase': 'ddp_world_one', 'card': card, 'backend': 'nccl', 'world_size': 1,
+              'codebook_deterministic_algorithms': True,
+              'transformer_layers': DDP_LAYERS, 'steps': DDP_STEPS, 'transformer_batch': TRAIN_B,
+              'codebook_batch': DDP_CB_BATCH, **times}
+    launches = {}
+    for name in ('transformer', 'codebook'):
+        (plain, plain_step, plain_launches, plain_job), (ddp, ddp_step, ddp_launches, ddp_job) = (
+            runs[name, False], runs[name, True])
+        plain_params, ddp_params = plain.state_dict(), ddp.state_dict()
+        diff = max((plain_params[k].float() - ddp_params[k].float()).abs().max().item()
+                   for k in plain_params)
+        restored, step = restore_checkpoint(ddp_job, prefer='last')
+        restored_equal = all(torch.equal(restored['model'][k], ddp_params[k].cpu())
+                             for k in ddp_params)
+        record[name] = {'steps': [plain_step, ddp_step], 'max_abs_param_diff': diff,
+                        'losses_plain': losses(plain_job), 'losses_nccl': losses(ddp_job),
+                        'restored_step': step, 'restored_equal': restored_equal}
+        # the seconds between the logged ends of steps 1 and 2 (host clock)
+        for run in ('plain', 'nccl'):
+            logged = record[name][f'losses_{run}']
+            record[name][f'step_gap_s_{run}'] = logged[1]['time'] - logged[0]['time']
+        check(plain_step == ddp_step == step == DDP_STEPS, f'{name}: steps {record[name]}')
+        check(diff == 0, f'{name}: the NCCL run differs from the plain run by {diff}')
+        check(record[name]['losses_plain'] == [
+            {**r, 'time': p['time']} for r, p in zip(record[name]['losses_nccl'],
+                                                     record[name]['losses_plain'])],
+              f'{name}: logged losses differ')
+        check(restored_equal, f'{name}: the NCCL job dir does not restore the final parameters')
+        if plain_launches is not None:
+            # 2 train steps at 2 layers and one validation step
+            expected = remat_launches(ac, transformer_config, DDP_STEPS, False)
+            expected.update(block_causal_attention_fwd=DDP_LAYERS,
+                            branch_attention_fwd=DDP_LAYERS)
+            record[name].update(launches=ddp_launches, expected_launches=expected)
+            check(plain_launches == ddp_launches == expected,
+                  f'{name}: launches {plain_launches}, {ddp_launches} != {expected}')
+            launches['ddp_world_one'] = ddp_launches
+        del plain, ddp
+    emit(record, log)
+    torch.cuda.empty_cache()
+    return images, launches
+
+
+def cli_rest(ac, tmp, images, log, card):
+    """Phase 12 (c). Returns {'visualize_codebook': launches}."""
+    import importlib.util
+
+    from PIL import Image
+
+    from viewformer_tpu_torch import cli
+    from viewformer_tpu_torch.commands import visualize_codebook as vc
+    from viewformer_tpu_torch.data import tfrecord
+    from viewformer_tpu_torch.data.loaders import build
+    from viewformer_tpu_torch.models import load_model
+
+    record = {'phase': 'cli_rest', 'card': card}
+    # dataset shuffle: the records move whole
+    shuffled = os.path.join(tmp, 'shuffled')
+    t0 = time.perf_counter()
+    cli.main(['dataset', 'shuffle', '--dataset', images, '--output', shuffled, '--seed', '3'])
+    record['shuffle_s'] = time.perf_counter() - t0
+
+    def records(root):
+        names = sorted(n for n in os.listdir(root) if n.endswith('.tfrecord') and '-train-' in n)
+        return [list(tfrecord.read_records(os.path.join(root, n))) for n in names]
+
+    source, moved = records(images), records(shuffled)
+    flat_source = [r for shard in source for r in shard]
+    flat_moved = [r for shard in moved for r in shard]
+    record.update(shuffle_records=len(flat_moved), shuffle_shards=len(moved))
+    check(sorted(flat_moved) == sorted(flat_source), 'dataset shuffle changed the records')
+    check(flat_moved != flat_source, 'dataset shuffle kept the order')
+    check(all(len(shard) <= 1 for shard in moved), 'dataset shuffle broke the shard limit')
+
+    # visualize codebook --output: make_grid over the card's reconstructions
+    job = save_codebook(os.path.join(tmp, 'viz-codebook'))
+    grid_path = os.path.join(tmp, 'grid.png')
+    args = ['--loader', 'colors', '--loader-num-sequences', '2', '--loader-sequence-size',
+            str(VIZ_IMAGES // 2)]
+    ac.reset_launch_counts()
+    t0 = time.perf_counter()
+    cli.main(['visualize', 'codebook', *args, '--codebook-model', job, '--output', grid_path,
+              '--num-images', str(VIZ_IMAGES)])
+    record['visualize_codebook_s'] = time.perf_counter() - t0
+    launches = {'visualize_codebook': counts(ac)}
+    grid = np.asarray(Image.open(grid_path))
+    loader = build('colors', split='test', num_sequences=2, sequence_size=VIZ_IMAGES // 2,
+                   image_size=SIZE)
+    frames = np.concatenate([np.asarray(loader[i]['frames']) for i in range(2)])[:VIZ_IMAGES]
+    expected = vc.reconstruction_grid(load_model(job, torch.bfloat16, 'cuda'), frames)
+    tiles = grid.reshape(-1, SIZE, 8, SIZE, 3).transpose(0, 2, 1, 3, 4).reshape(-1, SIZE, SIZE, 3)
+    record.update(grid_shape=list(grid.shape),
+                  reconstruction_mean_abs_err=float(np.abs(
+                      tiles[1::2].astype(np.float32) - frames.astype(np.float32)).mean()))
+    check(grid.shape == (VIZ_IMAGES * 2 // 8 * SIZE, 8 * SIZE, 3), f'grid {grid.shape}')
+    check(np.array_equal(tiles[0::2], frames), 'the grid\'s originals are not the frames')
+    check(np.array_equal(grid, expected), 'the grid differs from a direct reconstruction')
+    check(launches['visualize_codebook'] == only(ac), f'launches {launches}')
+
+    # dataset visualize: a PNG with matplotlib, else the error that names it
+    has_matplotlib = importlib.util.find_spec('matplotlib') is not None
+    print(f'matplotlib: {"present" if has_matplotlib else "absent"}', flush=True)
+    record['matplotlib'] = has_matplotlib
+    preview = os.path.join(tmp, 'preview.png')
+    command = ['dataset', 'visualize', '--loader', 'colors', '--loader-num-sequences', '2',
+               '--loader-sequence-size', '4', '--image-size', str(SIZE), '--output', preview]
+    if has_matplotlib:
+        cli.main(command)
+        check(np.asarray(Image.open(preview)).ndim == 3, 'dataset visualize wrote no image')
+    else:
+        try:
+            cli.main(command)
+        except ImportError as e:
+            record['dataset_visualize_error'] = str(e)
+        check('matplotlib' in record.get('dataset_visualize_error', ''),
+              'dataset visualize without matplotlib did not say so')
+    emit(record, log)
+    return launches
+
+
+def remat_ddp_and_cli(ac, log, card):
+    """Phase 12. Returns the launch counts of its paths."""
+    launches = remat_policies(ac, log, card)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_ddp_')
+    try:
+        images, ddp_launches = ddp_world_one(ac, tmp, log, card)
+        launches.update(ddp_launches)
+        launches.update(cli_rest(ac, tmp, images, log, card))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -2920,6 +3256,8 @@ def main():
     launches.update(sevenscenes_and_more(ac, log, card))
     torch.cuda.empty_cache()
     launches.update(released_checkpoints_and_co3d(ac, log, card))
+    torch.cuda.empty_cache()
+    launches.update(remat_ddp_and_cli(ac, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

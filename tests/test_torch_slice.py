@@ -1,9 +1,11 @@
 """The port's serving slice end to end against the JAX package, its
 independence from the JAX package (serving, train steps without and with
-dropout, the reader, checkpoints and train_transformer with a resume, a
+dropout and under the 'attn' remat policy, the reader, checkpoints and
+train_transformer with a resume, a
 serving session, the colors loader and the three evaluators, the tiny
 pipeline dataset generate -> train codebook -> generate-codes -> train
-transformer -> evaluate codebook through the CLI, ArchiveStore and the
+transformer -> evaluate codebook through the CLI, dataset shuffle and
+visualize codebook --output, ArchiveStore and the
 7-Scenes loader, the 7-Scenes, allimg and generate-gqn-images
 evaluators, and a released-layout codebook installed by pull_checkpoint and
 read by load_model, with viewformer_tpu, jax and flax blocked), and chip_smoke.py's
@@ -113,6 +115,12 @@ state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
     torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
+model, state = init_transformer_state(config, gen, dtype=torch.float32, device='cpu',
+    remat_policy='attn')
+state, metrics = make_transformer_train_step(model, config)(
+    state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
+    torch.Generator().manual_seed(1))
+assert state.step == 1 and np.isfinite(float(metrics['loss']))
 import os, tempfile
 from viewformer_tpu_torch.data.dataset import write_dataset_info, write_shard
 from viewformer_tpu_torch.train.transformer import train_transformer
@@ -165,6 +173,7 @@ assert list(result) == ['ctx01', 'ctx02'] and np.isfinite(result['ctx02']['psnr'
 result = evaluate_codebook(loader, jobs['c'], os.path.join(out, 'e3'), **kwargs)
 assert np.isfinite(result['ssim'])
 import json
+from PIL import Image
 from viewformer_tpu_torch import cli
 from viewformer_tpu_torch.models import lpips
 lpips._WEIGHT_PATHS = [os.path.join(out, 'no-lpips.npz')]
@@ -187,8 +196,13 @@ cli.main(['evaluate', 'codebook', '--loader', 'dataset', '--loader-path', images
     '--fp32', '--num-store-images', '0', '--batch-size', '5', '--num-eval-images', '5'])
 result = json.load(open(os.path.join(out, 'e4', 'results.json')))
 assert result['lpips'] is None and np.isfinite(result['psnr'])
+cli.main(['dataset', 'shuffle', '--dataset', images, '--output', os.path.join(out, 'shuffled')])
+assert sorted(os.listdir(os.path.join(out, 'shuffled'))) == sorted(os.listdir(images))
+cli.main(['visualize', 'codebook', '--loader', 'dataset', '--loader-path', images,
+    '--codebook-model', cjob, '--output', os.path.join(out, 'grid.png'), '--num-images', '4',
+    '--device', 'cpu', '--fp32'])
+assert Image.open(os.path.join(out, 'grid.png')).size == (8 * 16, 16)
 import io, zipfile
-from PIL import Image
 from viewformer_tpu_torch.data.archive import ArchiveStore
 from viewformer_tpu_torch.data.loaders import get_loaders
 from viewformer_tpu_torch.data.loaders.sevenscenes import SevenScenesLoader

@@ -266,12 +266,13 @@ def test_cli_writes_a_job_dir(dataset, codebook, tmp_path):
 
 
 def test_refusals(dataset, tmp_path):
-    """The policies that keep activations are not ported (train_transformer
-    takes no remat_policy, the CLI only 'full'); without a card the default
-    device raises (no fallback to the CPU); dropout_impl='rng' raises."""
+    """An unknown remat policy raises (train_transformer and the CLI take
+    full|attn|attn_mlp|dots|nothing, tests/test_torch_remat.py); without a
+    card the default device raises (no fallback to the CPU);
+    dropout_impl='rng' raises."""
     config = to_port(TINY)
-    with pytest.raises(TypeError, match='remat_policy'):
-        ttt.train_transformer(config, dataset, str(tmp_path / 'a'), remat_policy='attn',
+    with pytest.raises(ValueError, match='unknown remat policy'):
+        ttt.train_transformer(config, dataset, str(tmp_path / 'a'), remat_policy='everything',
                               device='cpu')
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match='no CUDA device'):
@@ -281,4 +282,4 @@ def test_refusals(dataset, tmp_path):
                               device='cpu')
     with pytest.raises(SystemExit):
         cli.main(['train', 'transformer', '--dataset', dataset, '--codebook-model', 'x',
-                  '--job-dir', str(tmp_path / 'd'), '--remat-policy', 'attn'])
+                  '--job-dir', str(tmp_path / 'd'), '--remat-policy', 'everything'])

@@ -19,7 +19,11 @@ backward, are hand-written CUDA (csrc/):
   commands.generate_codes (`generate-codes`);
 - transformer training (with and without dropout; the train step, and the
   loop train_transformer with its token-dataset reader, checkpoints and
-  CLI, `python -m viewformer_tpu_torch train ...`).
+  CLI, `python -m viewformer_tpu_torch train ...`), under every remat
+  policy (train.transformer.resolve_remat_policy), and data parallel on
+  several cards under torchrun (parallel.distributed);
+- the dataset tools `dataset shuffle`, `dataset visualize` and
+  `visualize codebook`.
 
 The entry points put their tensors on the card unless the caller passes
 device='cpu'; on CPU tensors the kernels' plain PyTorch versions run. The

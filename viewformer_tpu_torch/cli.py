@@ -1,6 +1,8 @@
 """The port's command line (`python -m viewformer_tpu_torch`), on argparse:
 
   dataset generate              write a loader's sequences as an image dataset
+  dataset shuffle               permute a dataset's sequences across its shards
+  dataset visualize             browse a loader's sequences and cameras
   train codebook                train the VQ-GAN codebook on an image dataset
   generate-codes                encode an image dataset into a token dataset
   train transformer             train MIGT on a token dataset
@@ -19,21 +21,26 @@
   serve                         the JSONL serving protocol (commands/serve.py)
   model info                    the parameter count of a checkpoint's model
   download-model                install a released checkpoint from a local file
+  visualize codebook            frames beside their codebook reconstructions
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
 without the TPU-only --steps-per-call, --seq-parallelism and
---force-wide-scan, with --remat-policy full only, without --wandb for the
-codebook, and with --device (default cuda) where a model runs. `dataset
-generate` and the evaluate commands take `--loader NAME` and pass every
-`--loader-<param> VALUE` (or `--loader-<param>=VALUE`) to the loader as
-<param>=VALUE, parsed as a bool, int or float where it reads as one. The
-evaluate commands and generate-codes compute in bf16 (the card's kernels
-take bf16) unless given --fp32, as serve does. `--loader` takes colors,
-dataset, sevenscenes, shapenet, co3d, co3dv2, interiornet and sm7. A
+--force-wide-scan, without --wandb for the codebook, with --remat-policy on
+finetune-transformer too, and with --device (default cuda) where a model
+runs. The training commands train on every card of a torchrun launch
+(data parallel, parallel/distributed.py). `dataset generate`, `dataset
+visualize`, `visualize codebook` and the evaluate commands take `--loader
+NAME` and pass every `--loader-<param> VALUE` (or `--loader-<param>=VALUE`)
+to the loader as <param>=VALUE, parsed as a bool, int or float where it
+reads as one. The evaluate commands, generate-codes and `visualize
+codebook` compute in bf16 (the card's kernels take bf16) unless given
+--fp32, as serve does. `--loader` takes colors, dataset, sevenscenes,
+shapenet, co3d, co3dv2, interiornet and sm7. A
 --transformer-model, --codebook-model or --model is a path or the name of a
 released checkpoint installed by `download-model NAME --from-file PATH`
-(the port downloads nothing). Not ported yet: `dataset shuffle`, `dataset
-visualize` and `visualize codebook`.
+(the port downloads nothing). `dataset visualize`, and `visualize
+codebook` without --output, draw with matplotlib, which the rest of the port
+does not need; without it they raise an ImportError that says so.
 """
 import argparse
 import dataclasses
@@ -76,6 +83,22 @@ def _add_common(parser):
     parser.add_argument('--wandb', action='store_true')
     parser.add_argument('--device', default='cuda',
                         help="where to train: a CUDA device (default) or 'cpu'")
+
+
+def _add_remat_policy(parser):
+    parser.add_argument(
+        '--remat-policy', choices=['full', 'attn', 'attn_mlp', 'dots', 'nothing'],
+        default='full',
+        help='what the per-block recompute of the backward keeps from the forward: '
+             'full or nothing = none (least memory); attn = the attention kernels\' '
+             'outputs and log-sum-exp, so the backward launches no forward attention '
+             'kernel again; attn_mlp = attn and the pre-GELU MLP product; dots = every '
+             'Linear product (the most memory; the attention kernels run again). '
+             'The gradients are the same under every policy.')
+
+
+def _remat_policy(args):
+    return None if args.remat_policy == 'full' else args.remat_policy
 
 
 def _parse_value(value):
@@ -153,6 +176,24 @@ def _parser():
     generate.add_argument('--allow-incompatible-config', action='store_true')
     generate.set_defaults(run=_dataset_generate)
 
+    shuffle = dataset.add_parser('shuffle',
+                                 help='Byte-level shard re-shuffle using .index sidecars.')
+    shuffle.add_argument('--dataset', dest='dataset_path', required=True)
+    shuffle.add_argument('--output', required=True)
+    shuffle.add_argument('--seed', type=int, default=42)
+    shuffle.set_defaults(run=_dataset_shuffle)
+
+    dataset_visualize = dataset.add_parser(
+        'visualize', help='Interactive matplotlib browser for sequences and poses (headless '
+                          'with --output).')
+    dataset_visualize.add_argument('--loader', dest='loader_name', required=True)
+    dataset_visualize.add_argument('--image-size', type=int, default=None)
+    dataset_visualize.add_argument('--output', default=None,
+                                   help='write a preview png here instead of an interactive '
+                                        'viewer')
+    dataset_visualize.add_argument('--max-sequences', type=int, default=4)
+    dataset_visualize.set_defaults(run=_dataset_visualize)
+
     generate_codes = groups.add_parser('generate-codes',
                                        help='Encode an image dataset into codebook tokens.')
     generate_codes.add_argument('--dataset', required=True)
@@ -196,11 +237,7 @@ def _parser():
     for flag, kind in _TRANSFORMER_OPTIONS:
         transformer.add_argument(f'--{flag}', type=kind, default=None)
     transformer.add_argument('--max-samples-per-environment', type=int, default=-1)
-    # Parsed and not passed on: the JAX package's scripts give --remat-policy
-    # full, which is what train_transformer always does (remat=True).
-    transformer.add_argument('--remat-policy', choices=['full'], default='full',
-                             help='per-block remat: full recomputes each block in the '
-                                  'backward (the only policy ported)')
+    _add_remat_policy(transformer)
     transformer.add_argument('--seed', type=int, default=42, help='init and data-order seed')
     transformer.add_argument('--resume', action=argparse.BooleanOptionalAction, default=True)
     transformer.set_defaults(run=_train_transformer)
@@ -215,6 +252,7 @@ def _parser():
                           help='optional codebook job dir for validation PSNR and image grids')
     for flag, kind in _FINETUNE_OPTIONS:
         finetune.add_argument(f'--{flag}', type=kind, default=None)
+    _add_remat_policy(finetune)
     finetune.set_defaults(run=_finetune_transformer)
 
     evaluate = groups.add_parser('evaluate', help='evaluation').add_subparsers(
@@ -340,6 +378,22 @@ def _parser():
     serve.add_argument('--device', default='cuda',
                        help="where to serve: a CUDA device (default) or 'cpu'")
     serve.set_defaults(run=_serve)
+
+    visualize = groups.add_parser('visualize', help='visualization').add_subparsers(
+        dest='command', required=True)
+    codebook_view = visualize.add_parser(
+        'codebook', help='Frames beside their reconstructions through a codebook.')
+    codebook_view.add_argument('--loader', dest='loader_name', default='dataset')
+    codebook_view.add_argument('--codebook-model', required=True)
+    codebook_view.add_argument('--output', default=None,
+                               help='write a reconstruction grid png here instead of an '
+                                    'interactive viewer')
+    codebook_view.add_argument('--num-images', type=int, default=16)
+    codebook_view.add_argument('--fp32', action='store_true',
+                               help="f32 weights (for the CPU: the card's kernels take bf16)")
+    codebook_view.add_argument('--device', default='cuda',
+                               help="where to reconstruct: a CUDA device (default) or 'cpu'")
+    codebook_view.set_defaults(run=_visualize_codebook)
     return parser
 
 
@@ -360,6 +414,36 @@ def _dataset_generate(args):
             allow_incompatible_config=args.allow_incompatible_config)
 
 
+def _dataset_shuffle(args):
+    from .data.shuffle import shuffle_dataset
+    shuffle_dataset(args.dataset_path, args.output, seed=args.seed)
+
+
+def _dataset_visualize(args):
+    from .commands.visualize import visualize_dataset
+    from .data.loaders import get_loader
+    kwargs = dict(args.loader_kwargs)
+    kwargs.setdefault('split', 'train')
+    if args.image_size is not None:
+        kwargs['image_size'] = args.image_size
+    visualize_dataset(get_loader(args.loader_name)(**kwargs), output=args.output,
+                      max_sequences=args.max_sequences)
+
+
+def _visualize_codebook(args):
+    from .commands.visualize_codebook import visualize_codebook
+    visualize_codebook(_loader(args), args.codebook_model, output=args.output,
+                       num_images=args.num_images, use_bfloat16=not args.fp32,
+                       device=args.device)
+
+
+def _train_device(args):
+    """The device of a training command; under torchrun, this process's
+    card, after joining the process group (data parallel)."""
+    from .parallel.distributed import initialize_distributed
+    return initialize_distributed(args.device)
+
+
 def _train_codebook(args):
     from .train.codebook import train_codebook
     options = {_field(flag): getattr(args, _field(flag)) for flag, _ in _CODEBOOK_OPTIONS}
@@ -373,7 +457,7 @@ def _train_codebook(args):
                    accumulate_grad_batches=args.accumulate_grad_batches,
                    log_every=args.log_every, checkpoint_every=args.checkpoint_every,
                    seed=args.seed, resume=args.resume, use_bf16=not args.fp32,
-                   device=args.device)
+                   device=_train_device(args))
 
 
 def _generate_codes(args):
@@ -397,7 +481,8 @@ def _train_transformer(args):
                       batch_size=config.batch_size, resume=args.resume, seed=args.seed,
                       use_bf16=not args.fp32, wandb=args.wandb,
                       max_samples_per_environment=args.max_samples_per_environment,
-                      checkpoint_every=args.checkpoint_every, device=args.device)
+                      checkpoint_every=args.checkpoint_every,
+                      remat_policy=_remat_policy(args), device=_train_device(args))
 
 
 def _finetune_transformer(args):
@@ -418,7 +503,7 @@ def _finetune_transformer(args):
                       total_steps=config.total_steps, epochs=args.epochs,
                       batch_size=config.batch_size, use_bf16=not args.fp32, wandb=args.wandb,
                       codebook_path=args.codebook_model, checkpoint_every=args.checkpoint_every,
-                      device=args.device)
+                      remat_policy=_remat_policy(args), device=_train_device(args))
 
 
 def _loader(args):
@@ -559,7 +644,7 @@ def _serve(args):
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     loader_kwargs = {}
-    if argv[:1] in (['evaluate'], ['dataset']):
+    if argv[:1] in (['evaluate'], ['dataset'], ['visualize']):
         argv, loader_kwargs = _split_loader_args(argv)
     args = _parser().parse_args(argv)
     args.loader_kwargs = loader_kwargs

@@ -277,3 +277,16 @@ def build_shard_index(tfrecord_file, index_file):
     with open(index_file, 'w') as out:
         for offset, length in read_record_spans(tfrecord_file):
             out.write(f'{offset} {length}\n')
+
+
+def read_shard_index(index_file):
+    """[(offset, length)] of the records of a shard, from its `.index`
+    sidecar."""
+    spans = []
+    with open(index_file) as f:
+        for line in f:
+            line = line.strip()
+            if line:
+                offset, length = line.split()
+                spans.append((int(offset), int(length)))
+    return spans

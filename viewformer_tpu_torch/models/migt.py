@@ -31,6 +31,24 @@ sites are, in the order the JAX module draws its dropout keys:
 package's dropout_impl='rng' (threefry Bernoulli noise) is not reproduced:
 the marginal is the same, the noise stream is not.
 
+Remat (MIGT(remat=True)): each block is recomputed in the backward
+(torch.utils.checkpoint, non-reentrant). remat_policy names the ops whose
+outputs the recompute takes from the forward instead (selective
+checkpointing; train/transformer.resolve_remat_policy maps the JAX
+package's names onto them): the attention's forward ops (the 'attn_out'
+anchor, ops/branching_attention.FORWARD_OPS), the MLP's c_fc product (the
+'mlp_fc' anchor, the op `viewformer::mlp_fc`), or every product without
+batch dimensions. The dropout sites stay in the recompute and regenerate
+their masks from the same seeds, so every policy gives the same gradients.
+
+Data parallel (parallel/distributed.py): a training forward on rank r of W
+holds rows r*B..(r+1)*B-1 of the global batch. It draws the random pose
+multiplier for all W*B rows and takes its own, hashes the non-attention
+dropout masks at the global batch's element indices, and, with W > 1,
+folds the rank into the attention kernels' seed words (ops/dropout.
+fold_rank). At dropout 0 a W-rank step thus computes what one process
+computes over the whole batch.
+
 Dtypes follow flax's dtype/param_dtype. `dtype` is the tower's compute dtype;
 `param_dtype` (default: dtype) is what the parameters are stored in. The
 serving form keeps the tower's parameters in dtype (bf16 on the card); the
@@ -40,15 +58,18 @@ are summed in f32 and cast to dtype, LayerNorm takes its statistics in f32,
 the residual streams stay in dtype. The pose MLP and the pose head are f32
 islands: f32 weights and f32 compute whatever the tower's dtype.
 """
+import functools
 import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops.branching_attention import multi_end_block_attention
-from ..ops.dropout import hash_dropout
+from ..ops.dropout import fold_rank, hash_dropout
+from ..parallel import distributed
 from ..utils import geometry
 from .initializers import truncated_normal_
 
@@ -69,6 +90,34 @@ def layer_norm(module, x, dtype):
                         module.bias.to(wide), module.eps).to(dtype)
 
 
+@torch.library.custom_op('viewformer::mlp_fc', mutates_args=(), device_types=('cpu', 'cuda'))
+def mlp_fc(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The MLP's pre-GELU c_fc product F.linear(x, weight, bias), as an op of
+    its own: the 'mlp_fc' remat anchor (the JAX package's
+    checkpoint_name(h, 'mlp_fc')), which by its op alone selective
+    checkpointing could not tell from the other products."""
+    return F.linear(x, weight, bias)
+
+
+def _mlp_fc_setup(ctx, inputs, output):
+    x, weight, _bias = inputs
+    ctx.save_for_backward(x, weight)
+
+
+def _mlp_fc_backward(ctx, grad):
+    x, weight = ctx.saved_tensors
+    rows = grad.reshape(-1, grad.shape[-1])
+    return grad @ weight, rows.t() @ x.reshape(-1, x.shape[-1]), rows.sum(0)
+
+
+mlp_fc.register_autograd(_mlp_fc_backward, setup_context=_mlp_fc_setup)
+
+
+def _dropout(words, x, rate, rank):
+    """hash_dropout of rank `rank`'s rows x of a global batch (batch leading)."""
+    return hash_dropout(words, x, rate, rank * x.numel())
+
+
 class MLP(nn.Module):
     def __init__(self, d_in, d_inner, d_out, dtype=torch.float32):
         super().__init__()
@@ -76,10 +125,12 @@ class MLP(nn.Module):
         self.c_proj = nn.Linear(d_inner, d_out)
         self.dtype = dtype
 
-    def forward(self, x, dropout_rate=0.0, words=None):
-        """With dropout_rate > 0, hash dropout of the output with seed words."""
-        out = linear(self.c_proj, F.gelu(linear(self.c_fc, x, self.dtype)), self.dtype)
-        return hash_dropout(words, out, dropout_rate)
+    def forward(self, x, dropout_rate=0.0, words=None, rank=0):
+        """With dropout_rate > 0, hash dropout of the output with seed words
+        (rank: the data-parallel rank whose rows x holds)."""
+        dtype = self.dtype
+        h = mlp_fc(x.to(dtype), self.c_fc.weight.to(dtype), self.c_fc.bias.to(dtype))
+        return _dropout(words, linear(self.c_proj, F.gelu(h), dtype), dropout_rate, rank)
 
 
 class BranchingAttention(nn.Module):
@@ -90,7 +141,7 @@ class BranchingAttention(nn.Module):
         self.n_head = n_head
         self.dtype = dtype
 
-    def forward(self, streams, dropout_rate=0.0, seeds=None):
+    def forward(self, streams, dropout_rate=0.0, seeds=None, rank=0):
         """streams: a list of [B, T, L, d], stream 0 first -> the list of
         their attention outputs. With dropout_rate > 0, seeds holds the
         attention's two pairs of words (stream 0, side streams), then one
@@ -106,7 +157,7 @@ class BranchingAttention(nn.Module):
         outs = multi_end_block_attention(tuple(ks), tuple(vs), tuple(qs), dropout_rate,
                                          seeds[:2])
         merged = [out.permute(0, 2, 3, 1, 4).reshape(B, T, L, d) for out in outs]
-        return [hash_dropout(words, linear(self.c_proj, x, self.dtype), dropout_rate)
+        return [_dropout(words, linear(self.c_proj, x, self.dtype), dropout_rate, rank)
                 for words, x in zip(seeds[2:], merged)]
 
 
@@ -119,15 +170,16 @@ class Block(nn.Module):
         self.mlp = MLP(d_model, 4 * d_model, d_model, dtype)
         self.dtype = dtype
 
-    def forward(self, *streams, dropout_rate=0.0, seeds=None):
+    def forward(self, *streams, dropout_rate=0.0, seeds=None, rank=0):
         """seeds: the layer's 2 + 2n dropout seed pairs in site order
-        (module docstring), read when dropout_rate > 0."""
+        (module docstring), read when dropout_rate > 0; rank: the
+        data-parallel rank whose rows the streams hold."""
         n = len(streams)
         seeds = seeds or [None] * (2 + 2 * n)
         normed = [layer_norm(self.ln_1, x, self.dtype) for x in streams]
-        attended = self.attn(normed, dropout_rate, seeds[:2 + n])
+        attended = self.attn(normed, dropout_rate, seeds[:2 + n], rank)
         streams = [x + a for x, a in zip(streams, attended)]
-        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype), dropout_rate, words)
+        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype), dropout_rate, words, rank)
                      for words, x in zip(seeds[2 + n:], streams))
 
 
@@ -182,13 +234,22 @@ def cross_entropy_with_label_smoothing(labels, logits, label_smoothing=0.0):
     return ce.reshape(labels.shape)
 
 
+def _save_only(ops, ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy: the outputs of `ops` are kept from the
+    forward, everything else is recomputed."""
+    return CheckpointPolicy.MUST_SAVE if op in ops else CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class MIGT(nn.Module):
     def __init__(self, config, dtype=torch.float32, generator=None, param_dtype=None,
-                 remat=False, dropout_impl='hash'):
+                 remat=False, dropout_impl='hash', remat_policy=None):
         """dtype: the tower's compute dtype; param_dtype: what wte, wpe, the
         blocks and ln_f are stored in (default dtype). remat: recompute each
         block in the backward (torch.utils.checkpoint) instead of keeping
-        its activations. dropout_impl: 'hash' only (module docstring)."""
+        its activations. remat_policy: with remat, the ops whose outputs the
+        recompute takes from the forward (train/transformer.
+        resolve_remat_policy); None or empty: none, the whole block is
+        recomputed. dropout_impl: 'hash' only (module docstring)."""
         super().__init__()
         if dropout_impl != 'hash':
             raise ValueError(f"dropout_impl={dropout_impl!r} is not ported: the port "
@@ -197,6 +258,11 @@ class MIGT(nn.Module):
         d = cfg.d_model
         self.dtype = dtype
         self.remat = remat
+        self._remat_context = {}
+        if remat_policy:
+            policy = functools.partial(_save_only, frozenset(remat_policy))
+            self._remat_context['context_fn'] = functools.partial(
+                create_selective_checkpoint_contexts, policy)
         self.wte = nn.Embedding(cfg.n_embeddings + 2, d)
         self.wpe = nn.Parameter(torch.empty(WPE_STATIC_SIZE, d))
         self.pose_embedding = MLP(7, 2 * d, d)
@@ -257,7 +323,9 @@ class MIGT(nn.Module):
         the random pose multiplier from `generator`; `step` drives the
         localization-weight schedule. With config.dropout > 0, training
         reads dropout_seeds: dropout_sites(n streams) pairs of uint32 words in
-        site order (module docstring)."""
+        site order (module docstring). Under data parallel (a
+        torch.distributed process group), the rows are this rank's of the
+        global batch (module docstring)."""
         cfg = self.config
         B, T_in = input_ids.shape[:2]
         grid = tuple(input_ids.shape[2:])
@@ -265,9 +333,10 @@ class MIGT(nn.Module):
         tokens = input_ids.reshape(B, T_in, L)
         device = self.wpe.device
 
-        # train-time random pose-scale augmentation
+        rank, world = distributed.rank(), distributed.world_size()
+        # train-time random pose-scale augmentation, drawn for the global batch
         if not deterministic and cfg.random_pose_multiplier != 1.0:
-            u = torch.rand(B, generator=generator) * 2 - 1
+            u = torch.rand(B * world, generator=generator)[rank * B:(rank + 1) * B] * 2 - 1
             random_pose_multiplier = (cfg.random_pose_multiplier ** u).to(device)
         else:
             random_pose_multiplier = torch.ones(B, device=device)
@@ -316,16 +385,19 @@ class MIGT(nn.Module):
                                  f'{len(seeds)} dropout seed pairs, got '
                                  f'{None if dropout_seeds is None else len(dropout_seeds)}')
             seeds = [tuple(int(w) for w in pair) for pair in dropout_seeds]
-        streams = tuple(hash_dropout(words, x.to(self.dtype), dropout_rate)
+        streams = tuple(_dropout(words, x.to(self.dtype), dropout_rate, rank)
                         for words, x in zip(seeds, streams))
         per_layer = 2 + 2 * n
         for i, block in enumerate(self.h):
             layer_seeds = seeds[n + i * per_layer:n + (i + 1) * per_layer]
+            if dropout_rate > 0 and world > 1:
+                layer_seeds[:2] = [fold_rank(words, rank) for words in layer_seeds[:2]]
             if self.remat and torch.is_grad_enabled():
                 streams = checkpoint(block, *streams, dropout_rate=dropout_rate,
-                                     seeds=layer_seeds, use_reentrant=False)
+                                     seeds=layer_seeds, rank=rank, use_reentrant=False,
+                                     **self._remat_context)
             else:
-                streams = block(*streams, dropout_rate=dropout_rate, seeds=layer_seeds)
+                streams = block(*streams, dropout_rate=dropout_rate, seeds=layer_seeds, rank=rank)
         streams = [layer_norm(self.ln_f, x, self.dtype) for x in streams]
 
         output = {'hidden_states': streams}

@@ -15,10 +15,67 @@ kernels B3/B4. With attention dropout, BlockCausalAttentionDropout and
 BranchAttentionDropout: kernels B5/B7 forward and B6/B8 backward, which hash
 the dropout mask from two uint32 seed words and the weights' indices in both
 directions, so nothing but the seeds is kept for the backward.
+
+The Functions' forward launches (B1, B2, B5, B7, each with its log-sum-exp)
+are torch.library custom ops, `viewformer::block_causal_fwd`,
+`viewformer::branch_fwd`, `viewformer::block_causal_dropout_fwd` and
+`viewformer::branch_dropout_fwd`, so that torch.utils.checkpoint's selective
+checkpointing sees them as ops and can save their outputs (MIGT's remat
+policies 'attn' and 'attn_mlp'): a recompute under such a policy takes the
+saved (out, lse) and launches no forward kernel. Each op's implementation is
+the wrapper of attention_cuda, which launches the kernel on CUDA tensors and
+takes the plain twin on CPU tensors.
 """
+from typing import Tuple
+
 import torch
 
 from . import attention_cuda
+
+_DEVICES = ('cpu', 'cuda')
+
+
+@torch.library.custom_op('viewformer::block_causal_fwd', mutates_args=(), device_types=_DEVICES)
+def block_causal_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B1 with its row log-sum-exp: (out, lse)."""
+    return attention_cuda.block_causal_attention_fwd(q, k, v, L, return_lse=True)
+
+
+@torch.library.custom_op('viewformer::branch_fwd', mutates_args=(), device_types=_DEVICES)
+def branch_fwd(q: torch.Tensor, k0: torch.Tensor, v0: torch.Tensor, kb: torch.Tensor,
+               vb: torch.Tensor, L: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B2's one-shot form (first_q_frame=0, n_old=T) with its row
+    log-sum-exp: (out, lse)."""
+    return attention_cuda.branch_attention_fwd(q, k0, v0, kb, vb, L, 0, q.shape[1] // L,
+                                               return_lse=True)
+
+
+@torch.library.custom_op('viewformer::block_causal_dropout_fwd', mutates_args=(),
+                         device_types=_DEVICES)
+def block_causal_dropout_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, L: int,
+                             seed0: int, seed1: int,
+                             rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B5 (seed words seed0, seed1) with its row log-sum-exp."""
+    return attention_cuda.block_causal_attention_dropout_fwd(q, k, v, L, (seed0, seed1), rate,
+                                                             return_lse=True)
+
+
+@torch.library.custom_op('viewformer::branch_dropout_fwd', mutates_args=(),
+                         device_types=_DEVICES)
+def branch_dropout_fwd(q: torch.Tensor, k0: torch.Tensor, v0: torch.Tensor, kb: torch.Tensor,
+                       vb: torch.Tensor, L: int, seed0: int, seed1: int,
+                       rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel B7 (seed words seed0, seed1) with its row log-sum-exp."""
+    return attention_cuda.branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, (seed0, seed1),
+                                                       rate, return_lse=True)
+
+
+# the forward ops whose outputs MIGT's 'attn_out' remat anchor names
+FORWARD_OPS = (torch.ops.viewformer.block_causal_fwd.default,
+               torch.ops.viewformer.branch_fwd.default,
+               torch.ops.viewformer.block_causal_dropout_fwd.default,
+               torch.ops.viewformer.branch_dropout_fwd.default)
 
 
 def block_causal_attention(q, k, v):
@@ -48,7 +105,7 @@ class BlockCausalAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, L):
-        out, lse = attention_cuda.block_causal_attention_fwd(q, k, v, L, return_lse=True)
+        out, lse = torch.ops.viewformer.block_causal_fwd(q, k, v, L)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.L = L
         return out
@@ -72,9 +129,7 @@ class BranchAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k0, v0, kb, vb, L):
-        T = q.shape[1] // L
-        out, lse = attention_cuda.branch_attention_fwd(q, k0, v0, kb, vb, L, 0, T,
-                                                       return_lse=True)
+        out, lse = torch.ops.viewformer.branch_fwd(q, k0, v0, kb, vb, L)
         ctx.save_for_backward(q, k0, v0, kb, vb, out, lse)
         ctx.L = L
         return out
@@ -97,8 +152,7 @@ class BlockCausalAttentionDropout(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, L, seeds, rate):
-        out, lse = attention_cuda.block_causal_attention_dropout_fwd(q, k, v, L, seeds, rate,
-                                                                     return_lse=True)
+        out, lse = torch.ops.viewformer.block_causal_dropout_fwd(q, k, v, L, *seeds, rate)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.L, ctx.seeds, ctx.rate = L, seeds, rate
         return out
@@ -120,8 +174,7 @@ class BranchAttentionDropout(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k0, v0, kb, vb, L, seeds, rate):
-        out, lse = attention_cuda.branch_attention_dropout_fwd(q, k0, v0, kb, vb, L, seeds, rate,
-                                                               return_lse=True)
+        out, lse = torch.ops.viewformer.branch_dropout_fwd(q, k0, v0, kb, vb, L, *seeds, rate)
         ctx.save_for_backward(q, k0, v0, kb, vb, out, lse)
         ctx.L, ctx.seeds, ctx.rate = L, seeds, rate
         return out

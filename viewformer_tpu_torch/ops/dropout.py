@@ -49,19 +49,23 @@ def _uniform(words, idx):
     return (hash_bits(words, idx) >> 8).to(torch.float32) / float(1 << 24)
 
 
-def hash_uniform(words, shape, device=None):
-    """Uniform [0, 1) f32 of `shape`, element i (row-major) from hash(i)."""
+def hash_uniform(words, shape, device=None, offset=0):
+    """Uniform [0, 1) f32 of `shape`, element i (row-major) from
+    hash(offset + i)."""
     n = math.prod(shape)
-    return _uniform(words, torch.arange(n, dtype=torch.int64, device=device)).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    return _uniform(words, idx).reshape(shape)
 
 
-def hash_dropout(words, x, rate):
+def hash_dropout(words, x, rate, offset=0):
     """Inverted dropout of x: an element is kept iff its uniform is >= rate
     (compared in f32) and kept elements are x / (1 - rate), divided in x's
-    dtype; identity when rate <= 0."""
+    dtype; identity when rate <= 0. offset: the index of x's first element
+    in the array x is a slice of; data-parallel ranks hash the global
+    batch's indices, as XLA does under the JAX package's data axis."""
     if rate <= 0.0:
         return x
-    keep = hash_uniform(words, tuple(x.shape), x.device) >= float(np.float32(rate))
+    keep = hash_uniform(words, tuple(x.shape), x.device, offset) >= float(np.float32(rate))
     divisor = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / divisor, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -73,3 +77,14 @@ def hash_keep(words, idx, rate):
     scale = float(np.float32(1.0 / (1.0 - rate)))
     keep = _uniform(words, idx) >= float(np.float32(rate))
     return keep.to(torch.float32) * scale
+
+
+def fold_rank(words, rank):
+    """The attention kernels' seed words of data-parallel rank `rank`: each
+    word hashed with the rank (hash_bits keyed by the words, at indices
+    2 * rank and 2 * rank + 1), so that ranks draw distinct masks over
+    their local (batch, head) rows. The counterpart of the JAX package's
+    jax.random.fold_in of the shard index, not bit-equal to it; used only
+    with more than one rank."""
+    idx = torch.tensor([2 * rank, 2 * rank + 1], dtype=torch.int64)
+    return tuple(int(w) for w in hash_bits(words, idx))

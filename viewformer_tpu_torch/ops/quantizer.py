@@ -1,10 +1,14 @@
 """The EMA vector quantizer (port of init_quantizer_state, nearest_codes,
 embed_code and quantize_ema in viewformer_tpu/ops/quantizer.py). The
 codebook is [D, N], column-major like the reference; its state lives in the
-buffers of models.vqgan.Quantizer, which quantize_ema updates in place."""
+buffers of models.vqgan.Quantizer, which quantize_ema updates in place.
+Under data parallel the EMA update sums its statistics over the ranks, so
+every replica's codebook takes the global batch's update."""
 import math
 
 import torch
+
+from ..parallel import distributed
 
 
 def init_quantizer_state(embedding_dim, num_embeddings, generator=None):
@@ -41,12 +45,14 @@ def embed_code(embeddings, indices):
 def quantize_ema(state, inputs, *, training, decay=0.99, epsilon=1e-5):
     """EMA vector quantization of [..., D] f32 inputs against `state` (a
     models.vqgan.Quantizer). Returns (quantized [..., D] with the
-    straight-through gradient, e_latent_loss, indices [...]).
+    straight-through gradient, e_latent_loss, indices [...]). Under data
+    parallel, inputs are this rank's rows and e_latent_loss their mean.
 
     quantized and the loss use the embeddings as they were before this call.
     With training=True the EMA statistics of this batch then update the
     state's buffers in place, without gradient: one-hot counts and
-    inputs^T @ one-hot in f32, hidden EMAs moved by (1 - decay), the counter
+    inputs^T @ one-hot in f32, summed over the ranks (the JAX package's
+    global sums under its data axis), hidden EMAs moved by (1 - decay), the counter
     + 1, bias correction 1 - decay^counter, Laplace-smoothed cluster sizes,
     embeddings = ema_dw / smoothed sizes. training=False leaves the state
     as it is."""
@@ -60,8 +66,8 @@ def quantize_ema(state, inputs, *, training, decay=0.99, epsilon=1e-5):
         with torch.no_grad():
             flat = inputs.detach().reshape(-1, embedding_dim).float()
             onehot = torch.nn.functional.one_hot(indices.reshape(-1), num_embeddings).float()
-            embed_onehot_sum = onehot.sum(0)
-            embed_sum = flat.t() @ onehot
+            embed_onehot_sum = distributed.all_reduce_sum(onehot.sum(0))
+            embed_sum = distributed.all_reduce_sum(flat.t() @ onehot)
             cluster = state.ema_cluster_size_hidden
             dw = state.ema_dw_hidden
             cluster.add_((embed_onehot_sum - cluster) * (1 - decay))

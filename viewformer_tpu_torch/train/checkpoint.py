@@ -17,6 +17,12 @@ queued when a newer one arrives are cancelled and their snapshots freed at
 once, so at most two snapshots are alive (the one being written and the
 newest). An error of an earlier save is raised by the next save(), wait()
 or close().
+
+Under data parallel (a torch.distributed world size above 1), rank 0 alone
+writes the config, the aux files and the checkpoints, and its commit is
+synchronous: save() returns on every rank after a barrier that follows the
+commit, so every rank then restores the same files (the JAX package's rule:
+process 0 writes, multi-process saves are synchronous).
 """
 import concurrent.futures
 import json
@@ -28,6 +34,7 @@ import threading
 import torch
 
 from ..config import save_config
+from ..parallel import distributed
 
 _log = logging.getLogger(__name__)
 
@@ -64,19 +71,20 @@ class CheckpointManager:
     def __init__(self, job_dir, config=None):
         """save() clones each tensor where it lives (on the card for a card
         run) and the worker copies the clones to the host: a snapshot costs
-        one state of device memory, and at most two are alive. Single
-        process only: with a torch.distributed world size above 1 it raises
-        (DDP training is not ported)."""
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise NotImplementedError('CheckpointManager runs in one process; '
-                                      'multi-process (DDP) training is not ported')
+        one state of device memory, and at most two are alive. With a world
+        size above 1 every rank constructs it and calls save() together;
+        rank 0 writes (module docstring)."""
         self.job_dir = os.path.abspath(job_dir)
         self._last_dir = os.path.join(self.job_dir, 'last')
         self._best_dir = os.path.join(self.job_dir, 'best')
+        # with several ranks: rank 0 writes, synchronously; the others wait
+        self._synchronous = distributed.world_size() > 1
+        self._writes = distributed.rank() == 0
         os.makedirs(self.job_dir, exist_ok=True)
-        if config is not None:
+        if config is not None and self._writes:
             save_config(config, self.job_dir)
+        if config is not None and self._synchronous:
+            distributed.barrier()
         # One worker: commits happen in the order of the saves.
         self._pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix='ckpt-commit')
@@ -113,6 +121,9 @@ class CheckpointManager:
         checkpoint's aux survives however far the commits lag; load_aux
         resolves against the committed step."""
         step = int(step)
+        if not self._writes:
+            distributed.barrier()  # rank 0 commits, then all go on
+            return
         if aux is not None:
             name = f'aux-{step}.json'
             tmp = os.path.join(self.job_dir, name + '.tmp')
@@ -125,6 +136,14 @@ class CheckpointManager:
                     os.unlink(os.path.join(self.job_dir, f'aux-{s}.json'))
         snapshot, event = self._snapshot(state)
         val_loss = None if val_loss is None else float(val_loss)
+        if self._synchronous:
+            self._payloads[step] = (snapshot, event, val_loss)
+            del snapshot
+            try:
+                self._commit(step)
+            finally:
+                distributed.barrier()
+            return
         # Coalesce: cancel the queued saves (a rolling checkpoint needs only
         # the newest) and drop their snapshots now. The payloads live here,
         # not in the executor's work items, so a cancelled one frees its

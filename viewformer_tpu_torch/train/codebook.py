@@ -14,6 +14,13 @@ max_norm / global norm only when the global norm is at least max_norm, and
 accumulate_grad_batches = k > 1 is optax.MultiSteps: the running mean of k
 gradients, then one Adam update on every k-th call; the parameters do not
 move in between, and the step counts every call. No attention kernel runs.
+
+Data parallel (parallel/distributed.py, one process per card under
+torchrun): each rank runs the step on its rows of the global batch; the
+gradients are averaged over the ranks before the accumulation and the clip,
+the EMA codebook update sums its statistics over them (quantize_ema), the
+perplexity counts every rank's codes and the metrics are averaged, so the
+L1, LPIPS and EMA-loss terms are means over the global batch.
 """
 import dataclasses
 import sys
@@ -26,6 +33,7 @@ from ..data.pipeline import load_image_dataset
 from ..models.lpips import load_lpips
 from ..models.vqgan import VQGAN
 from ..ops.image import normalize_images
+from ..parallel import distributed
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
 from .logging import MetricLogger
@@ -65,7 +73,7 @@ def init_codebook_state(config, generator=None, dtype=torch.bfloat16, device='cu
 
 
 def _perplexity(codes, n_embed):
-    counts = torch.bincount(codes.reshape(-1), minlength=n_embed)
+    counts = distributed.all_reduce_sum(torch.bincount(codes.reshape(-1), minlength=n_embed))
     probs = counts / counts.sum().clamp(min=1)
     return torch.exp(-torch.where(probs > 0, probs * torch.log(probs), 0.0).sum())
 
@@ -77,7 +85,8 @@ def codebook_loss_fn(model, config, lpips, batch):
     perceptual term's gradient flows through the reconstruction only.
     metrics (detached 0-d tensors): p_loss (NaN when perceptual_weight > 0
     but lpips is None, 0 at weight 0), rec_loss, quant_loss, total_loss and
-    perplexity of the batch's codes."""
+    perplexity of the codes of the batch (of the global batch, under data
+    parallel)."""
     x = normalize_images(batch).float()
     dec, e_latent_loss, _quant, codes = model(x, training=True)
     return codebook_loss(config, lpips, x, dec, e_latent_loss, codes)
@@ -116,7 +125,9 @@ def make_codebook_train_step(model, config, lpips=None):
     """-> train_step(state, batch) -> (state, metrics): the loss and its
     gradients, then (every accumulate_grad_batches-th call) the clip and one
     Adam update of the model's parameters in place; state.step advances by
-    one a call. Metrics are those of codebook_loss_fn."""
+    one a call. Under data parallel the gradients are averaged over the
+    ranks first. Metrics are those of codebook_loss_fn, averaged over the
+    ranks."""
     params = list(model.parameters())
 
     def update(state, grads):
@@ -131,6 +142,7 @@ def make_codebook_train_step(model, config, lpips=None):
             p.grad = None
         loss, metrics = codebook_loss_fn(model, config, lpips, batch)
         loss.backward()
+        distributed.average_gradients(params)
         grads = [p.grad for p in params]
         if state.accumulate_grad_batches > 1:
             if state.acc_grads is None:
@@ -145,7 +157,7 @@ def make_codebook_train_step(model, config, lpips=None):
         else:
             update(state, grads)
         state.step += 1
-        return state, metrics
+        return state, distributed.all_reduce_mean(metrics)
 
     return train_step
 
@@ -219,10 +231,16 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
     last checkpoint, and from its data cursor if that belongs to the same
     step. profile_batch: torch.profiler traces steps profile_batch and
     profile_batch + 1 into job_dir/profile (0: off). device: the card
-    unless the caller asks for the CPU."""
+    unless the caller asks for the CPU.
+
+    Under torchrun (parallel/distributed.initialize_distributed), each rank
+    reads its own shards in batches of batch_size / W frames; the
+    validation metrics are the mean over every rank's batches, and rank 0
+    writes the checkpoints and the metric log."""
     device = resolve_device(device)
     total_steps = total_steps or config.total_steps
     batch_size = batch_size or config.batch_size
+    local_batch = distributed.local_batch_size(batch_size)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     model, state = init_codebook_state(config, torch.Generator().manual_seed(seed), dtype,
                                        device, accumulate_grad_batches=accumulate_grad_batches)
@@ -249,7 +267,7 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
     eval_step = make_codebook_eval_step(model, config, lpips)
     logger = MetricLogger(job_dir, hparams=config.asdict())
     steps_per_epoch = max(1, 1 + total_steps // epochs)
-    train_data = load_image_dataset(dataset_path, batch_size, config.image_size, split='train',
+    train_data = load_image_dataset(dataset_path, local_batch, config.image_size, split='train',
                                     repeat=-1, seed=seed, start_state=data_state,
                                     output_dtype='uint8')
 
@@ -257,7 +275,7 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
         return {'data_iterator': train_data.state} if train_data.state is not None else None
 
     def validate(step):
-        val_data = load_image_dataset(dataset_path, batch_size, config.image_size,
+        val_data = load_image_dataset(dataset_path, local_batch, config.image_size,
                                       split='test', repeat=1, shuffle=False, seed=seed,
                                       output_dtype='uint8')
         outs = []
@@ -275,8 +293,10 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
             if i == 0:
                 recon = (dec / 2 + 0.5).clamp(0, 1).cpu().numpy()
                 logger.log_images(step, (recon * 255).astype(np.uint8), tag='reconstructed')
-        return {key: float(np.mean(v)) for key, v in values.items()}
+        return {key: float(np.mean(v))
+                for key, v in distributed.gather_lists(values).items()}
 
+    progress = progress and distributed.rank() == 0
     step = last_save = last_log = start_step
     profiler = None
     try:

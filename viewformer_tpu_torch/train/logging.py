@@ -2,21 +2,26 @@
 
 `metrics.jsonl` in the job dir is always written, one record a call:
 {"step": n, "time": seconds since the logger opened, "<prefix>/<key>": value}.
-TensorBoard and wandb are extra sinks, attached when their packages import."""
+TensorBoard and wandb are extra sinks, attached when their packages import.
+Under data parallel only rank 0 writes: on the other ranks a MetricLogger
+opens nothing and its calls do nothing."""
 import json
 import os
 import time
 
 import numpy as np
 
+from ..parallel import distributed
+
 
 class MetricLogger:
     def __init__(self, job_dir, hparams=None, use_wandb=False):
         self.job_dir = job_dir
+        self._jsonl = self._tb = self._wandb = None
+        if distributed.rank() != 0:
+            return
         os.makedirs(job_dir, exist_ok=True)
         self._jsonl = open(os.path.join(job_dir, 'metrics.jsonl'), 'a')
-        self._tb = None
-        self._wandb = None
         try:
             from torch.utils.tensorboard import SummaryWriter
             self._tb = SummaryWriter(log_dir=job_dir)
@@ -35,6 +40,8 @@ class MetricLogger:
         self._start = time.time()
 
     def log(self, step, metrics, prefix='train'):
+        if self._jsonl is None:
+            return
         record = {'step': int(step), 'time': round(time.time() - self._start, 3)}
         for k, v in metrics.items():
             try:
@@ -59,6 +66,8 @@ class MetricLogger:
             self._tb.add_image(f'{tag}/{i}', img, int(step), dataformats='HWC')
 
     def close(self):
+        if self._jsonl is None:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()

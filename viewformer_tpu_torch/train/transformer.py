@@ -7,7 +7,13 @@ per-tensor gradient clip and the warmup-cosine learning rate, and the train
 and eval steps over MIGT.forward(compute_losses=True). The model keeps f32
 master parameters and computes in bf16 (MIGT(dtype=bf16,
 param_dtype=f32)), with each block recomputed in the backward
-(torch.utils.checkpoint), as JAX's remat=True with no policy.
+(torch.utils.checkpoint), as JAX's remat=True; a remat policy
+(resolve_remat_policy) keeps some of the block's outputs from the forward.
+
+Data parallel (parallel/distributed.py, one process per card under
+torchrun): each rank runs the step on its rows of the global batch, the
+gradients are averaged over the ranks before the clip (JAX clips the global
+gradients), and so are the metrics; every rank draws the same seed words.
 
 On the card the attention runs kernels B1/B2 forward and B3/B4 backward
 (ops/branching_attention.py); with config.dropout > 0 (the default recipe,
@@ -35,6 +41,8 @@ import torch.nn as nn
 from ..data.pipeline import load_token_dataset
 from ..models import load_model
 from ..models.migt import MIGT
+from ..ops.branching_attention import FORWARD_OPS
+from ..parallel import distributed
 from ..utils import geometry
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager, restore_checkpoint
@@ -130,6 +138,35 @@ def create_transformer_optimizer(model, config, total_steps=None, warmup_steps=2
     return optimizer, warmup_cosine_schedule(config.learning_rate, total_steps, warmup_steps)
 
 
+def resolve_remat_policy(name):
+    """A remat policy's name -> the ops whose outputs the per-block
+    recompute keeps from the forward (MIGT's remat_policy), None to keep
+    none. The names are the JAX package's:
+
+      full (or None), nothing: none; the whole block is recomputed
+      attn:      the attention's forward ops ('attn_out': out and the
+                 log-sum-exp of kernels B1/B2/B5/B7, a [B*H, T*L, dh] output
+                 a stream a layer), so the backward never launches a
+                 forward attention kernel again
+      attn_mlp:  attn and the MLP's pre-GELU c_fc product ('mlp_fc',
+                 [B, T, L, 4d] a stream a layer)
+      dots:      every product without batch dimensions (the Linear layers'
+                 mm/addmm and mlp_fc); the attention kernels run again
+
+    Every policy gives the same gradients, bit for bit."""
+    if name is None or name in ('full', 'nothing'):
+        return None
+    if name == 'attn':
+        return FORWARD_OPS
+    if name == 'attn_mlp':
+        return FORWARD_OPS + (torch.ops.viewformer.mlp_fc.default,)
+    if name == 'dots':
+        return (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                torch.ops.viewformer.mlp_fc.default)
+    raise ValueError(
+        f'unknown remat policy {name!r} (full|attn|attn_mlp|dots|nothing)')
+
+
 @dataclasses.dataclass
 class TransformerTrainState:
     """What a train step reads and advances: the optimizer (holding the
@@ -142,14 +179,16 @@ class TransformerTrainState:
 
 def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device='cuda',
                            remat=True, total_steps=None, warmup_steps=2000,
-                           dropout_impl='hash'):
+                           dropout_impl='hash', remat_policy=None):
     """-> (model, TransformerTrainState): MIGT with f32 parameters drawn from
     `generator`, computing in `dtype`, on `device` (the card unless the
-    caller asks for the CPU); remat recomputes each block in the backward.
+    caller asks for the CPU); remat recomputes each block in the backward,
+    keeping what the named remat_policy keeps (resolve_remat_policy).
     dropout_impl: 'hash' only; 'rng' raises."""
     device = resolve_device(device)
     model = MIGT(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
-                 remat=remat, dropout_impl=dropout_impl).to(device)
+                 remat=remat, dropout_impl=dropout_impl,
+                 remat_policy=resolve_remat_policy(remat_policy)).to(device)
     optimizer, lr_schedule = create_transformer_optimizer(model, config, total_steps,
                                                           warmup_steps)
     return model, TransformerTrainState(optimizer, lr_schedule)
@@ -183,12 +222,14 @@ def draw_dropout_seeds(model, generator=None):
 
 def make_transformer_train_step(model, config):
     """-> train_step(state, batch, generator=None) -> (state, metrics).
-    batch = (poses [B, S, 7], tokens [B, S, h, w]) on the model's device;
+    batch = (poses [B, S, 7], tokens [B, S, h, w]) on the model's device:
+    this rank's rows of the global batch under data parallel;
     generator (a CPU torch.Generator) draws the step's dropout seeds
     (draw_dropout_seeds, when config.dropout > 0), then the random pose
-    multiplier. One AdamW update of the model's parameters in place;
-    state.step advances by one. Metrics are 0-d tensors on the device
-    (reading them waits for the step)."""
+    multiplier. One AdamW update of the model's parameters in place, from
+    the gradients averaged over the ranks; state.step advances by one.
+    Metrics are 0-d tensors on the device, averaged over the ranks (reading
+    them waits for the step)."""
     def train_step(state, batch, generator=None):
         poses, tokens = batch
         lr = state.lr_schedule(state.step)
@@ -200,12 +241,14 @@ def make_transformer_train_step(model, config):
                     generator=generator, dropout_seeds=seeds)
         loss = out['loss'].mean()
         loss.backward()
+        distributed.average_gradients(model.parameters())
         if config.gradient_clip_val and config.gradient_clip_val > 0:
             clip_per_tensor_norm(model.parameters(), config.gradient_clip_val)
         state.optimizer.step()
         state.step += 1
-        return state, _metrics(out, config, tokens, ('pose_loss', 'pose_pos_loss',
-                                                     'pose_ori_loss', 'localization_weight'))
+        return state, distributed.all_reduce_mean(_metrics(
+            out, config, tokens, ('pose_loss', 'pose_pos_loss', 'pose_ori_loss',
+                                  'localization_weight')))
     return train_step
 
 
@@ -268,7 +311,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
                       epochs=100, batch_size=None, resume=True, finetune_from=None, seed=42,
                       use_bf16=True, wandb=False, log_every=50, max_samples_per_environment=-1,
                       progress=True, profile_batch=50, dropout_impl='hash', remat=True,
-                      checkpoint_every=None, device='cuda'):
+                      remat_policy=None, checkpoint_every=None, device='cuda'):
     """The training loop (CLI `train transformer` and `train
     finetune-transformer`). Returns (model, state).
 
@@ -291,17 +334,25 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
     last checkpoint gives the parameters, the AdamW state and the step (so
     the schedules continue), instead. profile_batch: torch.profiler traces
     steps profile_batch and profile_batch + 1 into job_dir/profile (0: off).
-    remat: each block recomputed in the backward (JAX's remat_policy
-    'full'); the policies that keep activations are not ported (ROADMAP
-    §A 4). dropout_impl: 'hash' only. device: the card unless the caller asks for
-    the CPU."""
+    remat: each block recomputed in the backward, keeping what
+    remat_policy keeps (resolve_remat_policy: full|attn|attn_mlp|dots|
+    nothing). dropout_impl: 'hash' only. device: the card unless the caller
+    asks for the CPU.
+
+    Under torchrun (parallel/distributed.initialize_distributed), each rank
+    reads its own shards (data/pipeline.py) in batches of batch_size / W
+    rows, so a step takes batch_size rows over the W ranks; the validation
+    metrics are the mean over every rank's batches, and rank 0 writes the
+    checkpoints and the metric log. A resumed run restores every rank from
+    rank 0's data cursor."""
     device = resolve_device(device)
     total_steps = total_steps or config.total_steps
     batch_size = batch_size or config.batch_size
+    local_batch = distributed.local_batch_size(batch_size)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     model, state = init_transformer_state(config, torch.Generator().manual_seed(seed), dtype,
                                           device, remat=remat, total_steps=total_steps,
-                                          dropout_impl=dropout_impl)
+                                          dropout_impl=dropout_impl, remat_policy=remat_policy)
     ckpt = CheckpointManager(job_dir, config)
     start_step, data_state = 0, None
     if finetune_from is not None:
@@ -324,7 +375,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
     logger = MetricLogger(job_dir, hparams=config.asdict(), use_wandb=wandb)
     transform = functools.partial(process_batch, augment=config.augment_poses)
     train_data = load_token_dataset(
-        dataset_path, batch_size, config.sequence_size, config.token_image_size,
+        dataset_path, local_batch, config.sequence_size, config.token_image_size,
         split='train', repeat=-1, seed=seed, transform=transform,
         max_samples_per_environment=max_samples_per_environment, start_state=data_state)
     steps_per_epoch = max(1, total_steps // epochs)
@@ -339,7 +390,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
 
     def validate(step):
         val_data = load_token_dataset(
-            dataset_path, batch_size, config.sequence_size, config.token_image_size,
+            dataset_path, local_batch, config.sequence_size, config.token_image_size,
             split='test', repeat=1, seed=seed, shuffle=False, transform=transform)
         values = {}
         try:
@@ -357,8 +408,10 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
                         logger.log_images(step, images.cpu().numpy(), tag='generated')
         finally:
             val_data.close()  # a break leaves the producer blocked otherwise
-        return {key: float(np.mean(v)) for key, v in values.items()}
+        return {key: float(np.mean(v))
+                for key, v in distributed.gather_lists(values).items()}
 
+    progress = progress and distributed.rank() == 0
     step = last_save = last_log = start_step
     profiler = None
     try:
