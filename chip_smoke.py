@@ -7,6 +7,7 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
   1. the card's name and power limit; build the CUDA kernels from
      viewformer_tpu_torch/csrc (one nvcc a source, in parallel, sm_90a),
      print the build time and check that ptxas reports no register spills;
+     build the native host codec from csrc/host (g++; data/native.py);
   2. each kernel against its plain PyTorch version on the card, at the main
      paths' shapes, with CUDA-event times of both, its bound (the least time
      of the card for its FLOPs and bytes, ops/attention_cost.py) and the
@@ -152,7 +153,21 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      random-weight VQGANConfig() codebook on the card (the grid's originals
      and reconstructions against a direct reconstruction), and `dataset
      visualize`: its PNG where matplotlib imports, else the ImportError
-     that says it is missing (a line says which).
+     that says it is missing (a line says which);
+ 13. the data axis of inference and the host codec
+     (data_axis_and_host_codec): (a) phase 9's image dataset (1056 frames
+     at 128 px) and random-weight MIGTConfig() and VQGANConfig() job dirs;
+     generate-codes (batch 352) and evaluate transformer,
+     transformer-multictx (16 sequences a batch, S = 20) and codebook (64
+     frames a batch) through the CLI over its train split, once without a
+     process group and once under torchrun's environment (the CLI joins a
+     one-rank NCCL group): every shard, results.json and stored file
+     byte-equal, the JAX package's keys, frames/s, seconds a batch, the
+     device's busy share and exact launches a batch (11 B1 + 24 B2 for
+     evaluate transformer); (b) the native int64 decode that phase 1 built
+     (vfcodec must build: g++ is nvcc's host compiler) on phase 7's token
+     shards against the pure-Python decode, record by record, with host ms
+     of each.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -160,6 +175,7 @@ import contextlib
 import copy
 import dataclasses
 import importlib
+import io
 import json
 import os
 import re
@@ -270,6 +286,11 @@ SEVEN_QUERIES, SEVEN_SPECIAL, ALLIMG_SEQUENCES, GQN_SEQUENCES = 32, 2, 2, 3
 REMAT_POLICIES, REMAT_STEPS = ('full', 'attn', 'attn_mlp', 'dots', 'nothing'), 3
 DDP_LAYERS, DDP_STEPS, DDP_CB_BATCH = 2, 2, 32
 DDP_CB_SEQUENCES, VIZ_IMAGES = {'train': 4, 'test': 2}, 16
+# Phase 13: generate-codes over phase 9's image dataset at CB_BATCH, and
+# the evaluators over its train split (CB_SEQUENCES['train'] sequences cut
+# to S frames) in batches of AXIS_BATCH sequences (the codebook's of
+# CODEBOOK_BATCH frames), storing AXIS_STORE samples each.
+AXIS_BATCH, AXIS_STORE = 16, 4
 
 
 def compared(n_layer):
@@ -3202,6 +3223,247 @@ def remat_ddp_and_cli(ac, log, card):
     return launches
 
 
+@contextlib.contextmanager
+def torchrun_group(port):
+    """torchrun's environment for one rank on card 0 (RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR, MASTER_PORT): a command run in it joins an NCCL
+    group of one rank through the CLI, destroyed on the way out."""
+    import torch.distributed as dist
+
+    env = dict(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='127.0.0.1',
+               MASTER_PORT=str(port))
+    saved = {key: os.environ.get(key) for key in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key)
+            else:
+                os.environ[key] = value
+
+
+def files_of(path):
+    """{relative path: bytes} of every file under path."""
+    out = {}
+    for d, _, names in os.walk(path):
+        for name in names:
+            with open(os.path.join(d, name), 'rb') as f:
+                out[os.path.relpath(os.path.join(d, name), path)] = f.read()
+    return out
+
+
+def data_axis(ac, tmp, images, jobs, log, card):
+    """Phase 13 (a): generate-codes and evaluate transformer,
+    transformer-multictx and codebook through the CLI, each without a
+    process group and then under torchrun's environment (a one-rank NCCL
+    group joined by the CLI): the shards, results.json and the stored files
+    byte-equal. Returns the launch counts of both runs."""
+    import torch.distributed as dist
+
+    from viewformer_tpu_torch import cli
+    from viewformer_tpu_torch.commands import generate_codes as gc
+    from viewformer_tpu_torch.config import load_config
+    from viewformer_tpu_torch.evaluate import codebook as ecodebook
+    from viewformer_tpu_torch.evaluate import multictx as emultictx
+    from viewformer_tpu_torch.evaluate import transformer as etransformer
+    from viewformer_tpu_torch.parallel import distributed
+
+    n_layer = load_config(jobs['transformer']).n_layer
+    per_batch = {
+        'generate-codes': only(ac),
+        'transformer': only(ac, block_causal_attention_fwd=n_layer - 1,
+                            branch_attention_fwd=2 * n_layer),
+        'transformer-multictx': only(ac, block_causal_attention_fwd=n_layer,
+                                     branch_attention_fwd=n_layer),
+        'codebook': only(ac)}
+    metrics = ['loc-angle', 'loc-dist', 'loc-angle-med', 'loc-dist-med',
+               'mse', 'rmse', 'mae', 'psnr', 'lpips', 'ssim']  # the JAX package's keys
+    modules = {'transformer': etransformer, 'transformer-multictx': emultictx,
+               'codebook': ecodebook}
+    loader = ['--loader', 'dataset', '--loader-path', images, '--loader-split', 'train',
+              '--codebook-model', jobs['codebook'], '--num-store-images', str(AXIS_STORE)]
+    frames = sum(CB_SEQUENCES.values()) * CB_FRAMES
+
+    def commands(out):
+        yield 'generate-codes', ['generate-codes', '--dataset', images, '--output',
+                                 os.path.join(out, 'codes'), '--model', jobs['codebook'],
+                                 '--batch-size', str(CB_BATCH)]
+        for kind in modules:
+            argv = ['evaluate', kind, *loader, '--job-dir', os.path.join(out, kind)]
+            if kind == 'codebook':
+                argv += ['--batch-size', str(CODEBOOK_BATCH)]
+            else:
+                argv += ['--transformer-model', jobs['transformer'], '--batch-size',
+                         str(AXIS_BATCH), '--sequence-size', str(S)]
+            yield kind, argv
+
+    loads, load = [], gc.load_model
+
+    def timed_load(*args, **kwargs):
+        t0 = time.perf_counter()
+        model = load(*args, **kwargs)
+        torch.cuda.synchronize()
+        loads.append(time.perf_counter() - t0)
+        return model
+
+    record = {'phase': 'data_axis', 'card': card, 'backend': 'nccl', 'world_size': 1,
+              'image_size': SIZE, 'frames': frames, 'generate_codes_batch': CB_BATCH,
+              'evaluate_sequences': CB_SEQUENCES['train'], 'evaluate_batch': AXIS_BATCH,
+              'codebook_batch': CODEBOOK_BATCH, 'frames_per_sequence': S}
+    launches = {}
+    for grouped in (False, True):
+        name = 'nccl' if grouped else 'plain'
+        launches[f'data_axis_{name}'] = only(ac)
+        for kind, argv in commands(os.path.join(tmp, name)):
+            # generate-codes keeps a batch in flight: time it whole, unsynced
+            calls, recorded = [], (contextlib.nullcontext() if kind == 'generate-codes' else
+                                   record_calls(ac, modules[kind], 'generate_batch_predictions'))
+            ac.reset_launch_counts()
+            gc.load_model = timed_load
+            with (torchrun_group(free_port()) if grouped else contextlib.nullcontext()), \
+                    recorded as calls:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    cli.main(argv)
+                finally:
+                    gc.load_model = load
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                joined = distributed.is_initialized() and distributed.world_size() == 1
+                busy = device_share(calls[-1]['call']) if calls else None
+            check(joined == grouped, f'{kind}: process group joined {joined}, wanted {grouped}')
+            total = counts(ac)
+            for key, n in total.items():
+                launches[f'data_axis_{name}'][key] += n
+            entry = {'run_s': run_s, 'launches': nonzero(total)}
+            if calls:
+                batch_s = [c['s'] for c in calls]
+                wall, device = busy
+                entry.update(batches=len(calls), batch_s=batch_s,
+                             batch_s_median=statistics.median(batch_s),
+                             launches_per_batch=[nonzero(c['launches']) for c in calls],
+                             busy_batch_s=wall, device_busy_share=device / wall)
+                check(all(c['launches'] == per_batch[kind] for c in calls),
+                      f'{kind} ({name}): launches a batch {entry["launches_per_batch"]}, '
+                      f'not {nonzero(per_batch[kind])}')
+                print(f'data_axis {kind} ({name}): {entry["batch_s_median"]:.4f} s a batch '
+                      f'({len(calls)} batches, {run_s:.3f} s), busy '
+                      f'{entry["device_busy_share"]:.1%}, launches a batch '
+                      f'{nonzero(calls[0]["launches"])} ({card})', flush=True)
+            else:
+                entry.update(frames_per_s=frames / run_s, load_model_s=loads[-1])
+                check(total == per_batch[kind], f'{kind} ({name}): launches {total}')
+                print(f'data_axis {kind} ({name}): {frames / run_s:.1f} frames/s over {frames} '
+                      f'frames, {run_s:.3f} s (load_model {loads[-1]:.3f} s) ({card})',
+                      flush=True)
+            record[f'{kind}_{name}'] = entry
+        check(not dist.is_initialized(), 'the process group outlived its command')
+    # generate-codes' device share, a third run
+    wall, device = device_share(lambda: gc.generate_codes(
+        images, os.path.join(tmp, 'busy'), jobs['codebook'], batch_size=CB_BATCH,
+        progress=False))
+    record.update(generate_codes_busy_run_s=wall, generate_codes_device_busy_share=device / wall)
+
+    plain, grouped = files_of(os.path.join(tmp, 'plain')), files_of(os.path.join(tmp, 'nccl'))
+    record.update(files=len(plain), differing_files=sorted(k for k in plain
+                                                          if grouped.get(k) != plain[k]),
+                  extra_files=sorted(set(grouped) - set(plain)))
+    results = {kind: json.loads(plain[os.path.join(kind, 'results.json')]) for kind in modules}
+    record['results'] = results
+    emit(record, log)
+    print(f'data_axis: generate-codes busy {record["generate_codes_device_busy_share"]:.1%} '
+          f'of {wall:.3f} s; {len(plain)} files, {len(record["differing_files"])} differ in '
+          f'the one-rank group ({card})', flush=True)
+    check(not record['differing_files'] and not record['extra_files'],
+          f'the one-rank group wrote other files: {record["differing_files"]} '
+          f'{record["extra_files"]}')
+    shards = sum(n.endswith('.tfrecord') for n in plain)
+    check(shards == sum(-(-n // CB_SHARD) for n in CB_SEQUENCES.values()),
+          f'generate-codes wrote {shards} shards')
+    check(sum(n.endswith('-gt.png') for n in plain) == 3 * AXIS_STORE, 'stored samples')
+    check_results('transformer', {'': results['transformer']}, metrics)
+    check_results('transformer-multictx', results['transformer-multictx'], metrics)
+    check(list(results['transformer-multictx']) == [f'ctx{i:02d}' for i in range(1, S)],
+          'transformer-multictx: context sizes')
+    check_results('codebook', {'': results['codebook']}, metrics[4:])
+    return launches
+
+
+def nonzero(launches):
+    return {name: n for name, n in launches.items() if n}
+
+
+def host_codec(tmp, host_build, log, card):
+    """Phase 13 (b): the native int64 decode against the pure-Python path
+    on phase 7's token shards, record by record, with host ms of each."""
+    from viewformer_tpu_torch.data import native, tfrecord
+
+    record = {'phase': 'host_codec', 'card': card, **host_build}
+    tokens = write_token_dataset(os.path.join(tmp, 'tokens'))
+    shards = sorted(os.path.join(tokens, n) for n in os.listdir(tokens) if n.endswith('.tfrecord'))
+    varints = {'native': 0.0, 'python': 0.0}
+    records, mismatched = 0, 0
+    decode_varints = native.decode_varints
+    for shard in shards:
+        for payload in tfrecord.read_records(shard):
+            records += 1
+            t0 = time.perf_counter()
+            fast = tfrecord.decode_example(payload)
+            varints['native'] += time.perf_counter() - t0
+            native.decode_varints = lambda buffer: None  # the pure-Python decode
+            try:
+                t0 = time.perf_counter()
+                slow = tfrecord.decode_example(payload)
+                varints['python'] += time.perf_counter() - t0
+            finally:
+                native.decode_varints = decode_varints
+            mismatched += int(not np.array_equal(fast['codes'], slow['codes']))
+    record.update(token_shards=len(shards), token_records=records,
+                  example_decode_ms_per_record={k: 1e3 * v / records for k, v in varints.items()},
+                  mismatched_records=mismatched)
+    emit(record, log)
+    print(f'host codec: example decode {record["example_decode_ms_per_record"]["native"]:.3f} ms '
+          f'a record natively, {record["example_decode_ms_per_record"]["python"]:.3f} in Python '
+          f'({records} records) ({card})', flush=True)
+    check(records > 0, 'no token record')
+    check(mismatched == 0, f'{mismatched} token records decode otherwise natively')
+
+
+def data_axis_and_host_codec(ac, host_build, log, card):
+    """Phase 13. Returns the launch counts of its paths."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_axis_')
+    try:
+        images = os.path.join(tmp, 'images')
+        t0 = time.perf_counter()
+        codebook_dataset(images)
+        jobs = {'transformer': save_transformer(os.path.join(tmp, 'transformer')),
+                'codebook': save_codebook(os.path.join(tmp, 'codebook'))}
+        print(f'phase 13 set-up: {time.perf_counter() - t0:.3f} s', flush=True)
+        launches = data_axis(ac, tmp, images, jobs, log, card)
+        host_codec(tmp, host_build, log, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+def build_host_codec():
+    """Phase 1's build of the native host codec (data/native.py) from
+    csrc/host/vfcodec.cc, which must build (g++ is nvcc's host compiler):
+    its seconds."""
+    from viewformer_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.build()
+    out = {'vfcodec_build_s': time.perf_counter() - t0}
+    check(native.get_lib() is not None, 'the native codec library does not load')
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -3226,6 +3488,8 @@ def main():
           'seconds': build_s, 'ptxas': ptxas}, log)
     spills = [line for line in ptxas if re.search(r'[1-9][0-9]* bytes spill', line)]
     check(not spills, f'ptxas reports register spills: {spills}')
+    host_build = build_host_codec()
+    emit({'phase': 'build_host_codec', 'card': card, **host_build}, log)
 
     kernels = kernel_checks(ac, log)
 
@@ -3258,6 +3522,8 @@ def main():
     launches.update(released_checkpoints_and_co3d(ac, log, card))
     torch.cuda.empty_cache()
     launches.update(remat_ddp_and_cli(ac, log, card))
+    torch.cuda.empty_cache()
+    launches.update(data_axis_and_host_codec(ac, host_build, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

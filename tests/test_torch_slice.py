@@ -7,9 +7,10 @@ pipeline dataset generate -> train codebook -> generate-codes -> train
 transformer -> evaluate codebook through the CLI, dataset shuffle and
 visualize codebook --output, ArchiveStore and the
 7-Scenes loader, the 7-Scenes, allimg and generate-gqn-images
-evaluators, and a released-layout codebook installed by pull_checkpoint and
-read by load_model, with viewformer_tpu, jax and flax blocked), and chip_smoke.py's
-refusal to run without a card."""
+evaluators, a released-layout codebook installed by pull_checkpoint and
+read by load_model, and the native host codecs, the fork decode pool and the
+parity harness, with viewformer_tpu, jax and flax blocked, one part a
+subprocess), and chip_smoke.py's refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -73,31 +74,77 @@ def test_generate_batch_predictions_matches_jax():
     assert all(fn.launches == 0 for fn in attention_cuda.KERNELS)
 
 
-_NO_JAX = """
-import pkgutil, sys
+# The port with viewformer_tpu, jax and flax blocked, in parts: each part is
+# one subprocess, its own case, on one intra-op thread, with its own time
+# limit. Every part ends by asserting that none of the three was imported.
+_PRELUDE = """
+import os, sys
 sys.modules['jax'] = None
 sys.modules['flax'] = None
 sys.modules['viewformer_tpu'] = None
 sys.path.insert(0, {root!r})
-import importlib, numpy as np, torch
+import numpy as np, torch
+torch.set_num_threads(1)
+from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
+from viewformer_tpu_torch.models import AutoModel
+gen = torch.Generator().manual_seed(0)
+rng = np.random.RandomState(0)
+out = {out!r}
+
+def tiny_models():
+    codebook = AutoModel.from_config(VQGANConfig(ch=32, ch_mult=[1, 2], num_res_blocks=1,
+        attn_resolutions=[8], z_channels=32, embed_dim=8, n_embed=16, image_size=16),
+        device='cpu', generator=gen)
+    transformer = AutoModel.from_config(MIGTConfig(n_embeddings=16, n_head=2, d_model=32,
+        n_layer=2, token_image_size=8), device='cpu', generator=gen)
+    return transformer, codebook
+
+def save_jobs(transformer, codebook):
+    from viewformer_tpu_torch.train.checkpoint import CheckpointManager
+    jobs = {{}}
+    for name, model in (('t', transformer), ('c', codebook)):
+        jobs[name] = os.path.join(out, name)
+        mgr = CheckpointManager(jobs[name], model.config)
+        mgr.save(0, {{'model': model.state_dict()}})
+        mgr.close()
+    return jobs
+
+def loader(size):
+    from viewformer_tpu_torch.data.loaders import build
+    return build('colors', split='test', num_sequences=2, sequence_size=3, image_size=size)
+
+def image_dataset(path, num_sequences=2, sequence_size=5, size=16):
+    from viewformer_tpu_torch.data.dataset import generate_dataset_from_loader
+    from viewformer_tpu_torch.data.loaders import build
+    for split in ('train', 'test'):
+        generate_dataset_from_loader(build('colors', split=split, num_sequences=num_sequences,
+            sequence_size=sequence_size, image_size=size), split, os.path.join(path, 'colors'),
+            max_sequences_per_shard=1, progress=False)
+    return path
+"""
+
+_EPILOGUE = """
+assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
+               if sys.modules[m])
+print('ran without jax and viewformer_tpu')
+"""
+
+_PARTS = {}
+_PARTS['imports_and_serving'] = """
+import importlib, pkgutil
 import viewformer_tpu_torch
 for info in pkgutil.walk_packages(viewformer_tpu_torch.__path__, 'viewformer_tpu_torch.'):
     importlib.import_module(info.name)
-from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
 from viewformer_tpu_torch.evaluate.transformer import generate_batch_predictions
-from viewformer_tpu_torch.models import AutoModel
-gen = torch.Generator().manual_seed(0)
-codebook = AutoModel.from_config(VQGANConfig(ch=32, ch_mult=[1, 2], num_res_blocks=1,
-    attn_resolutions=[8], z_channels=32, embed_dim=8, n_embed=16, image_size=16),
-    device='cpu', generator=gen)
-transformer = AutoModel.from_config(MIGTConfig(n_embeddings=16, n_head=2, d_model=32,
-    n_layer=2, token_image_size=8), device='cpu', generator=gen)
-rng = np.random.RandomState(0)
-out = generate_batch_predictions(transformer, codebook,
+transformer, codebook = tiny_models()
+result = generate_batch_predictions(transformer, codebook,
     rng.randint(0, 256, (1, 3, 16, 16, 3)).astype(np.uint8),
     rng.randn(1, 3, 7).astype(np.float32))
-assert out['generated_images'].shape == (1, 16, 16, 3)
-assert np.isfinite(out['generated_cameras']).all()
+assert result['generated_images'].shape == (1, 16, 16, 3)
+assert np.isfinite(result['generated_cameras']).all()
+"""
+_PARTS['train_steps'] = """
+import dataclasses
 from viewformer_tpu_torch.train.transformer import (init_transformer_state,
     make_transformer_train_step, process_batch)
 config = MIGTConfig(n_embeddings=16, n_head=2, d_model=32, n_layer=2, dropout=0.0,
@@ -108,7 +155,6 @@ cameras, tokens = process_batch(rng.randn(3, 7).astype(np.float32),
 state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
-import dataclasses
 config = dataclasses.replace(config, dropout=0.1)
 model, state = init_transformer_state(config, gen, dtype=torch.float32, device='cpu')
 state, metrics = make_transformer_train_step(model, config)(
@@ -121,10 +167,13 @@ state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
     torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
-import os, tempfile
+"""
+_PARTS['train_loop_with_resume'] = """
 from viewformer_tpu_torch.data.dataset import write_dataset_info, write_shard
 from viewformer_tpu_torch.train.transformer import train_transformer
-data = os.path.join(tempfile.mkdtemp(), 'data')
+config = MIGTConfig(n_embeddings=16, n_head=2, d_model=32, n_layer=2, dropout=0.1,
+    sequence_size=3, token_image_size=2, n_loss_skip=1, localization_weight='1')
+data = os.path.join(out, 'data')
 os.makedirs(data)
 write_dataset_info(os.path.join(data, 'info.json'), dict(name='d', token_image_size=2,
     features=['cameras', 'codes'], train_size=1, test_size=1, splits=['train', 'test']))
@@ -132,7 +181,7 @@ for split in ('train', 'test'):
     write_shard(os.path.join(data, 'd-%s-000001-of-000001' % split),
         [dict(cameras=rng.randn(7, 7), codes=rng.randint(0, 16, (7, 2, 2)))] * 2,
         ['cameras', 'codes'])
-job = os.path.join(os.path.dirname(data), 'job')
+job = os.path.join(out, 'job')
 kwargs = dict(epochs=1, batch_size=2, checkpoint_every=1, use_bf16=False, progress=False,
     device='cpu')
 _, state = train_transformer(config, data, job, total_steps=2, **kwargs)
@@ -140,7 +189,10 @@ assert state.step == 2 and os.listdir(os.path.join(job, 'last')) == ['2.pt']
 _, state = train_transformer(config, data, job, total_steps=3, **kwargs)  # resumes at 2
 assert state.step == 3
 assert len(open(os.path.join(job, 'metrics.jsonl')).readlines()) == 4  # 3 train, 1 val
+"""
+_PARTS['session_and_evaluators'] = """
 from viewformer_tpu_torch.serve import ServingSession
+transformer, codebook = tiny_models()
 session = ServingSession(transformer, codebook, batch_size=1, max_frames=3)
 frames = rng.randint(0, 256, (3, 16, 16, 3)).astype(np.uint8)
 cams = rng.randn(3, 7).astype(np.float32)
@@ -152,18 +204,8 @@ assert np.isfinite(session.localize(frames[None, 0])).all()
 from viewformer_tpu_torch.evaluate.codebook import evaluate_codebook
 from viewformer_tpu_torch.evaluate.multictx import evaluate_transformer_multictx
 from viewformer_tpu_torch.evaluate.transformer import evaluate_transformer
-from viewformer_tpu_torch.data.loaders import build
-from viewformer_tpu_torch.train.checkpoint import CheckpointManager
-jobs = {{}}
-for name, model in (('t', transformer), ('c', codebook)):
-    jobs[name] = os.path.join(os.path.dirname(data), name)
-    mgr = CheckpointManager(jobs[name], model.config)
-    mgr.save(0, {{'model': model.state_dict()}})
-    mgr.close()
-loader = lambda size: build('colors', split='test', num_sequences=2, sequence_size=3,
-    image_size=size)
+jobs = save_jobs(transformer, codebook)
 kwargs = dict(num_store_images=1, progress=False, use_bfloat16=False, device='cpu')
-out = os.path.dirname(data)
 result = evaluate_transformer(loader, jobs['t'], jobs['c'], os.path.join(out, 'e1'),
     sequence_size=3, **kwargs)
 assert result['lpips'] is None and result['psnr'] > 0 and np.isfinite(result['loc-dist'])
@@ -172,6 +214,8 @@ result = evaluate_transformer_multictx(loader, jobs['t'], jobs['c'], os.path.joi
 assert list(result) == ['ctx01', 'ctx02'] and np.isfinite(result['ctx02']['psnr'])
 result = evaluate_codebook(loader, jobs['c'], os.path.join(out, 'e3'), **kwargs)
 assert np.isfinite(result['ssim'])
+"""
+_PARTS['cli_pipeline'] = """
 import json
 from PIL import Image
 from viewformer_tpu_torch import cli
@@ -202,7 +246,10 @@ cli.main(['visualize', 'codebook', '--loader', 'dataset', '--loader-path', image
     '--codebook-model', cjob, '--output', os.path.join(out, 'grid.png'), '--num-images', '4',
     '--device', 'cpu', '--fp32'])
 assert Image.open(os.path.join(out, 'grid.png')).size == (8 * 16, 16)
+"""
+_PARTS['archives_and_sevenscenes'] = """
 import io, zipfile
+from PIL import Image
 from viewformer_tpu_torch.data.archive import ArchiveStore
 from viewformer_tpu_torch.data.loaders import get_loaders
 from viewformer_tpu_torch.data.loaders.sevenscenes import SevenScenesLoader
@@ -212,6 +259,7 @@ from viewformer_tpu_torch.evaluate.sevenscenes import evaluate_sevenscenes
 from viewformer_tpu_torch.evaluate.sevenscenes_baseline import evaluate_sevenscenes_baseline
 from viewformer_tpu_torch.evaluate.sevenscenes_multictx import evaluate_sevenscenes_multictx
 assert len(get_loaders()) == 8
+jobs = save_jobs(*tiny_models())
 def seq_zip(n, x0):
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, 'w') as z:
@@ -249,14 +297,18 @@ result = evaluate_transformer_multictx_allimg(loader, jobs['t'], jobs['c'],
     os.path.join(out, 'e7'), context_views=[0], keep_last_frame=True, num_eval_sequences=1,
     progress=False, use_bfloat16=False, device='cpu')
 assert np.isfinite(result['ctx01']['psnr'])
+images = image_dataset(os.path.join(out, 'images'))
 generate_gqn_images(images, os.path.join(out, 'e8'), jobs['t'], jobs['c'], num_eval_sequences=1,
     progress=False, use_bfloat16=False, device='cpu')
 assert sorted(os.listdir(os.path.join(out, 'e8')))[-2:] == ['gen0.png', 'gt0.png']
+"""
+_PARTS['released_checkpoint'] = """
 import re
 from viewformer_tpu_torch.config import save_config
 from viewformer_tpu_torch.models import load_model
 from viewformer_tpu_torch.utils import pull_checkpoint
-reference = {{}}
+_, codebook = tiny_models()
+reference = {}
 for key, value in codebook.state_dict().items():
     key = re.sub(r'^(encoder|decoder)[.](down|up)_(\\d+)_(block|attn)_(\\d+)[.]', r'\\1.\\2.\\3.\\4.\\5.', key)
     key = re.sub(r'^(encoder|decoder)[.](down|up)_(\\d+)_(downsample|upsample)[.]', r'\\1.\\2.\\3.\\4.', key)
@@ -264,21 +316,43 @@ for key, value in codebook.state_dict().items():
     reference[re.sub(r'^quantizer[.]', 'quantize.', key)] = value
 released = os.path.join(out, 'released')
 save_config(codebook.config, released)
-torch.save({{'state_dict': reference}}, os.path.join(released, 'model.ckpt'))
+torch.save({'state_dict': reference}, os.path.join(released, 'model.ckpt'))
 os.environ['HOME'] = os.path.join(out, 'home')
 pull_checkpoint('tiny-codebook-th', local_source=released)
 loaded = load_model('tiny-codebook-th', device='cpu').state_dict()
 assert list(loaded) == list(codebook.state_dict())
 assert all(torch.equal(loaded[k], v) for k, v in codebook.state_dict().items())
-assert not any(m.split('.')[0] in ('jax', 'flax', 'viewformer_tpu') for m in sys.modules
-               if sys.modules[m])
-print('ran without jax and viewformer_tpu')
+"""
+_PARTS['host_codec_and_harness'] = """
+from viewformer_tpu_torch.data import native, tfrecord
+from viewformer_tpu_torch.ops.image import decode_image, encode_image
+from viewformer_tpu_torch.utils.testing import assert_gradients_same, assert_outputs_same
+frame = rng.randint(0, 256, (16, 16, 3)).astype(np.uint8)
+assert decode_image(encode_image(frame)).shape == (16, 16, 3)
+codes = rng.randint(0, 1024, 64).astype(np.int64)
+payload = tfrecord.encode_example({'codes': ('int64', codes)})
+assert np.array_equal(tfrecord.decode_example(payload)['codes'], codes)
+packed = bytearray()
+for value in codes.tolist():
+    tfrecord._write_varint(packed, value)
+decoded = native.decode_varints(bytes(packed))
+assert decoded is None or np.array_equal(decoded, codes)
+images = image_dataset(os.path.join(out, 'images'), num_sequences=4, sequence_size=4, size=8)
+shard = os.path.join(images, 'colors-train-000001-of-000004.tfrecord')
+assert len(list(tfrecord.read_record_spans(shard))) == 1
+module = torch.nn.Sequential(torch.nn.Linear(8, 4), torch.nn.Tanh())
+assert assert_outputs_same(module, module, (3, 8), channels_last=False)
+assert assert_gradients_same(module, module, (3, 8), channels_last=False)
 """
 
 
-def test_port_runs_with_jax_blocked():
-    proc = subprocess.run([sys.executable, '-c', _NO_JAX.format(root=ROOT)],
-                          capture_output=True, text=True, timeout=300)
+@pytest.mark.parametrize('part', list(_PARTS))
+def test_port_runs_with_jax_blocked(tmp_path, part):
+    """Each part of the port runs in a process where viewformer_tpu, jax and
+    flax cannot be imported, and imports none of them."""
+    script = _PRELUDE.format(root=ROOT, out=str(tmp_path)) + _PARTS[part] + _EPILOGUE
+    proc = subprocess.run([sys.executable, '-c', script], capture_output=True, text=True,
+                          timeout=240, env=dict(os.environ, OMP_NUM_THREADS='1'))
     assert proc.returncode == 0, proc.stderr
     assert 'ran without jax and viewformer_tpu' in proc.stdout
 

@@ -27,8 +27,9 @@ The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
 without the TPU-only --steps-per-call, --seq-parallelism and
 --force-wide-scan, without --wandb for the codebook, with --remat-policy on
 finetune-transformer too, and with --device (default cuda) where a model
-runs. The training commands train on every card of a torchrun launch
-(data parallel, parallel/distributed.py). `dataset generate`, `dataset
+runs. The training commands, generate-codes and evaluate
+transformer|transformer-multictx|codebook run on every card of a torchrun
+launch (data parallel, parallel/distributed.py). `dataset generate`, `dataset
 visualize`, `visualize codebook` and the evaluate commands take `--loader
 NAME` and pass every `--loader-<param> VALUE` (or `--loader-<param>=VALUE`)
 to the loader as <param>=VALUE, parsed as a bool, int or float where it
@@ -437,9 +438,10 @@ def _visualize_codebook(args):
                        device=args.device)
 
 
-def _train_device(args):
-    """The device of a training command; under torchrun, this process's
-    card, after joining the process group (data parallel)."""
+def _data_parallel_device(args):
+    """The device of a command that runs data parallel (training,
+    generate-codes, evaluate transformer|transformer-multictx|codebook);
+    under torchrun, this process's card, after joining the process group."""
     from .parallel.distributed import initialize_distributed
     return initialize_distributed(args.device)
 
@@ -457,14 +459,14 @@ def _train_codebook(args):
                    accumulate_grad_batches=args.accumulate_grad_batches,
                    log_every=args.log_every, checkpoint_every=args.checkpoint_every,
                    seed=args.seed, resume=args.resume, use_bf16=not args.fp32,
-                   device=_train_device(args))
+                   device=_data_parallel_device(args))
 
 
 def _generate_codes(args):
     from .commands.generate_codes import generate_codes
     generate_codes(args.dataset, args.output, args.model, shards=args.shards,
                    batch_size=args.batch_size, splits=args.splits,
-                   use_bfloat16=not args.fp32, device=args.device)
+                   use_bfloat16=not args.fp32, device=_data_parallel_device(args))
 
 
 def _train_transformer(args):
@@ -482,7 +484,7 @@ def _train_transformer(args):
                       use_bf16=not args.fp32, wandb=args.wandb,
                       max_samples_per_environment=args.max_samples_per_environment,
                       checkpoint_every=args.checkpoint_every,
-                      remat_policy=_remat_policy(args), device=_train_device(args))
+                      remat_policy=_remat_policy(args), device=_data_parallel_device(args))
 
 
 def _finetune_transformer(args):
@@ -503,7 +505,7 @@ def _finetune_transformer(args):
                       total_steps=config.total_steps, epochs=args.epochs,
                       batch_size=config.batch_size, use_bf16=not args.fp32, wandb=args.wandb,
                       codebook_path=args.codebook_model, checkpoint_every=args.checkpoint_every,
-                      remat_policy=_remat_policy(args), device=_train_device(args))
+                      remat_policy=_remat_policy(args), device=_data_parallel_device(args))
 
 
 def _loader(args):
@@ -524,7 +526,8 @@ def _evaluate_kwargs(args):
     return dict(batch_size=args.batch_size, num_eval_sequences=args.num_eval_sequences,
                 pose_multiplier=args.pose_multiplier, sequence_size=args.sequence_size,
                 num_store_images=args.num_store_images, store_ctx=args.store_ctx,
-                image_size=args.image_size, use_bfloat16=not args.fp32, device=args.device)
+                image_size=args.image_size, use_bfloat16=not args.fp32,
+                device=_data_parallel_device(args))
 
 
 def _evaluate_transformer(args):
@@ -544,7 +547,7 @@ def _evaluate_codebook(args):
     evaluate_codebook(_loader(args), args.codebook_model, args.job_dir,
                       batch_size=args.batch_size, num_eval_images=args.num_eval_images,
                       num_store_images=args.num_store_images, image_size=args.image_size,
-                      use_bfloat16=not args.fp32, device=args.device)
+                      use_bfloat16=not args.fp32, device=_data_parallel_device(args))
 
 
 def _models_kwargs(args):

@@ -8,25 +8,35 @@ sequences into batches of a fixed size (the tail padded with zeros), so the
 encoder sees one shape whatever the sequence lengths. One batch is in
 flight: batch i + 1 is dispatched before batch i's codes are read, which
 come back through a pinned host buffer and a CUDA event on the card.
+
+Under torchrun (parallel/distributed.py) every rank reads the same frames
+and encodes its batch_size / W rows of each batch; the codes of all ranks
+are gathered on the device, and rank 0 alone writes the shards, info.json
+and the indexes (transform_dataset).
 """
 import numpy as np
 import torch
 
 from ..data.dataset import transform_dataset
 from ..models import load_model
+from ..parallel import distributed
 from ..ops.image import ensure_wire_images, normalize_images
 
 
 class LatentCodeTransformer:
     """transform_dataset's transformer: sequences of frames -> sequences of
     codes [N, h, w] with their cameras, through `model` (a VQGAN) on the
-    device its weights are on."""
+    device its weights are on. batch_size is global: each of W ranks
+    encodes batch_size / W rows of a batch, so W must divide it."""
 
     def __init__(self, model, batch_size=None):
         self.model = model
         self.image_size = model.config.image_size
         self.batch_size = batch_size or model.config.batch_size
         self.device = model.quant_conv.weight.device
+        world = distributed.world_size()
+        if self.batch_size % world:
+            raise ValueError(f'batch {self.batch_size} not divisible by data axis {world}')
 
     def output_features(self, features):
         if features is not None and 'cameras-gqn' in features:
@@ -39,16 +49,19 @@ class LatentCodeTransformer:
 
     def _dispatch(self, frames):
         """frames [n, H, W, C] (n <= batch_size; uint8, or float in
-        [0, 255]) -> (codes in flight, n): padded to batch_size, encoded,
-        and on the card copied into pinned host memory behind an event,
-        without waiting for it."""
+        [0, 255]) -> (codes in flight, n): padded to batch_size, this
+        rank's rows encoded, every rank's codes gathered, and on the card
+        copied into pinned host memory behind an event, without waiting for
+        it."""
         x = ensure_wire_images(frames)
         n = len(x)
         if n < self.batch_size:
             x = np.concatenate([x, np.zeros((self.batch_size - n,) + x.shape[1:], x.dtype)], 0)
+        x = x[distributed.batch_rows(self.batch_size)]
         with torch.inference_mode():
             _quant, codes = self.model.encode(
                 normalize_images(torch.from_numpy(x).to(self.device)))
+            codes = distributed.gather_tensor_rows(codes)
         if self.device.type != 'cuda':
             return codes, None, n
         host = torch.empty(codes.shape, dtype=codes.dtype, pin_memory=True)
@@ -124,8 +137,9 @@ def generate_codes(dataset, output, model, shards=None, batch_size=None, splits=
     directory `output`, through the codebook of job dir `model` (bf16
     unless use_bfloat16=False) on `device`: the card unless the caller asks
     for the CPU. batch_size: frames an encode (default the codebook's
-    batch_size); shards: a SplitIndices (or its string) of the 1-based
-    shards; splits: default the dataset's."""
+    batch_size; under torchrun the global batch, which the ranks must
+    divide); shards: a SplitIndices (or its string) of the 1-based shards;
+    splits: default the dataset's. Under torchrun only rank 0 writes."""
     codebook = load_model(model, torch.bfloat16 if use_bfloat16 else torch.float32, device)
     transformer = LatentCodeTransformer(codebook, batch_size=batch_size)
     transform_dataset(dataset, output, transformer, splits=splits, shards=shards,

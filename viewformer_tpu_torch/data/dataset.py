@@ -8,6 +8,7 @@ package's, so a dataset written by either package reads in the other:
   <dir>/<name>-<split>-NNNNNN-of-MMMMMM.tfrecord   (+ .index sidecar)
   <dir>/<name>-<split>.index                        (the sequence index)
 """
+import collections
 import json
 import math
 import os
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.image import decode_image, encode_image
+from ..parallel import distributed
 from ..utils import SplitIndices, geometry
 from . import tfrecord
 
@@ -241,7 +243,10 @@ def transform_dataset(dataset_path, output_path, transformer, shards=None, split
     transformer(split, sequences) -> the new sequences (dicts), lazily;
     its `image_size`, where it has one, is checked against the dataset's.
     shards: a SplitIndices (or its string) of the 1-based shards to map;
-    info.json and the indexes are written where shard 1 is."""
+    info.json and the indexes are written where shard 1 is. In a process
+    group (parallel/distributed.py) only rank 0 writes; the other ranks
+    run the transformer over the same shards and drop what it yields."""
+    lead = distributed.rank() == 0
     old_info = get_dataset_info(dataset_path)
     new_info = dict(old_info)
     new_info['features'] = transformer.output_features(old_info.get('features'))
@@ -250,11 +255,12 @@ def transform_dataset(dataset_path, output_path, transformer, shards=None, split
         new_info = transformer.update_dataset_info(new_info)
 
     splits = splits if splits is not None else old_info.get('splits', ['test', 'train'])
-    os.makedirs(output_path, exist_ok=True)
     shard_restriction = None if shards is None else SplitIndices(shards)
-    if shards is None or 1 in shard_restriction:
-        write_dataset_info(os.path.join(output_path, 'info.json'), new_info,
-                           allow_incompatible_config=True)
+    if lead:
+        os.makedirs(output_path, exist_ok=True)
+        if shards is None or 1 in shard_restriction:
+            write_dataset_info(os.path.join(output_path, 'info.json'), new_info,
+                               allow_incompatible_config=True)
 
     name = old_info['name']
     for split in splits:
@@ -263,16 +269,20 @@ def transform_dataset(dataset_path, output_path, transformer, shards=None, split
             shard_list = list(SplitIndices(range(1, size + 1)).restrict(shard_restriction))
         else:
             shard_list = list(range(1, size + 1))
-        if 1 in shard_list:
+        if lead and 1 in shard_list:
             src_index = os.path.join(dataset_path, f'{name}-{split}.index')
             if os.path.exists(src_index):
                 shutil.copy(src_index, os.path.join(output_path, f'{name}-{split}.index'))
         iterator = shard_list
-        if progress:
+        if progress and lead:
             from tqdm import tqdm
             iterator = tqdm(shard_list, desc=f'generating {split}')
         for shard_id in iterator:
             dataset = read_dataset(dataset_path, split, shards=[shard_id],
                                    image_size=getattr(transformer, 'image_size', None))
+            sequences = transformer(split, dataset)
+            if not lead:
+                collections.deque(sequences, maxlen=0)
+                continue
             base = os.path.join(output_path, f'{name}-{split}-{shard_id:06d}-of-{size:06d}')
-            write_shard(base, transformer(split, dataset), features=new_info['features'])
+            write_shard(base, sequences, features=new_info['features'])

@@ -1,5 +1,9 @@
-"""TFRecord container and tf.train.Example codec, in pure Python (the port's
-own copy of viewformer_tpu/data/tfrecord.py, without its native fast paths).
+"""TFRecord container and tf.train.Example codec (the port's own copy of
+viewformer_tpu/data/tfrecord.py). Packed int64 lists take the native
+decode (data/native.py) where it is built, as the JAX package's do; the
+pure-Python path stays as the plain version and the fallback. The JAX
+package's native framing walk is not ported: it saved little over the
+walk here, which runs once a shard, off the hot path.
 
 The bytes are the JAX package's and the reference's: a shard is a sequence
 of framed records, each an `Example` protobuf with the features
@@ -14,6 +18,8 @@ u32le masked-crc32c(payload). The `.index` sidecar of a shard lists
 import struct
 
 import numpy as np
+
+from . import native
 
 _CRC_TABLE = None
 
@@ -172,11 +178,15 @@ def _decode_feature(buf, start, end):
                     chunks.append(np.frombuffer(buf, np.dtype('<f4'), count=1, offset=s2))
             return np.concatenate(chunks) if chunks else np.zeros((0,), np.float32)
         if field == _INT64_LIST:
-            values = []
+            values, chunks = [], []
             for f2, w2, s2, e2 in _iter_fields(buf, s, e):
                 if f2 != 1:
                     continue
-                if w2 == 2:  # packed
+                if w2 == 2:  # packed: the native decode where it is built
+                    decoded = native.decode_varints(buf[s2:e2])
+                    if decoded is not None:
+                        chunks.append(decoded)
+                        continue
                     pos = s2
                     while pos < e2:
                         v, pos = _read_varint(buf, pos)
@@ -184,7 +194,7 @@ def _decode_feature(buf, start, end):
                 elif w2 == 0:
                     v, _ = _read_varint(buf, s2)
                     values.append(v)
-            return np.array(values, np.uint64).astype(np.int64)
+            return np.concatenate(chunks + [np.array(values, np.uint64).astype(np.int64)])
     return None
 
 

@@ -1,10 +1,13 @@
 """`evaluate codebook`: reconstruction metrics of the VQ-GAN over single
 frames, encode then decode_code (port of
-viewformer_tpu/evaluate/codebook.py). No attention kernel runs."""
+viewformer_tpu/evaluate/codebook.py). No attention kernel runs. Under
+torchrun each rank reconstructs its rows of every batch and rank 0 alone
+evaluates and writes, as in evaluate/transformer.py."""
 import numpy as np
 import torch
 
 from ..ops.image import normalize_images, upload_frames
+from ..parallel import distributed
 from .evaluator import Evaluator
 from .transformer import (build_store_predictions, print_progress, print_results,
                           write_results)
@@ -30,15 +33,18 @@ def evaluate_codebook(loader, codebook_checkpoint, job_dir, batch_size=64, num_e
     loader (or a callable image_size -> loader), in batches of batch_size
     frames. Writes results.json (no loc- keys) and the first
     num_store_images samples to job_dir, prints the results and returns
-    them. Runs on `device`: the card unless the caller asks for the CPU."""
+    them (on rank 0; None on the other ranks of a process group). Runs on
+    `device`: the card unless the caller asks for the CPU."""
     from ..models import load_model
 
     codebook = load_model(codebook_checkpoint, torch.bfloat16 if use_bfloat16 else torch.float32,
                           device)
     if callable(loader) and not hasattr(loader, '__getitem__'):
         loader = loader(codebook.config.image_size)
-    evaluator = Evaluator(image_size=image_size, device=device)
-    store = build_store_predictions(job_dir, num_store_images)
+    lead = distributed.rank() == 0
+    if lead:
+        evaluator = Evaluator(image_size=image_size, device=device)
+        store = build_store_predictions(job_dir, num_store_images)
 
     def frame_batches():
         buffer = []
@@ -58,7 +64,10 @@ def evaluate_codebook(loader, codebook_checkpoint, job_dir, batch_size=64, num_e
             yield np.stack(buffer)
 
     for i, frames in enumerate(frame_batches(), 1):
-        prediction = generate_batch_predictions(codebook, frames)
+        prediction = distributed.map_rows(lambda rows: generate_batch_predictions(codebook, rows),
+                                          frames)
+        if not lead:
+            continue
         evaluator.update_with_image(prediction['ground_truth_images'],
                                     prediction['generated_images'])
         store(ground_truth_cameras=np.zeros((len(frames), 7), np.float32),
@@ -67,6 +76,8 @@ def evaluate_codebook(loader, codebook_checkpoint, job_dir, batch_size=64, num_e
               generated_images=prediction['generated_images'])
         if progress:
             print_progress(i, evaluator)
+    if not lead:
+        return None
     result = {k: v for k, v in evaluator.result().items() if not k.startswith('loc-')}
     write_results(job_dir, result)
     print_results(result)

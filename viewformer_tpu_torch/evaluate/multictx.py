@@ -5,6 +5,9 @@ t context frames; the localization stream gets the query frame's codes at
 every position. One one-shot MIGT.forward a batch: kernel B1 for stream 0
 and B2's one-shot form over the S = 2 side streams, a strong check of the
 branch masks.
+
+Under torchrun each rank predicts its rows of every batch and rank 0 alone
+evaluates and writes, as in evaluate/transformer.py.
 """
 import os
 
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from ..ops.image import normalize_images, upload_frames
+from ..parallel import distributed
 from .evaluator import MultiContextEvaluator, print_metrics
 from .transformer import (_batched_loader_iterator, from_relative_cameras, host_predictions,
                           load_models, normalize_cameras, print_progress, to_relative_cameras,
@@ -124,17 +128,26 @@ def evaluate_transformer_multictx(loader, transformer_checkpoint, codebook_check
     if callable(loader) and not hasattr(loader, '__getitem__'):
         loader = loader(codebook.config.image_size)
 
-    store = build_store_predictions(job_dir, num_store_images)
-    evaluator = MultiContextEvaluator(sequence_size, image_size=image_size, device=device)
+    def predict(frames, cameras):
+        return generate_batch_predictions(transformer, codebook, frames, cameras)
+
+    lead = distributed.rank() == 0
+    if lead:
+        store = build_store_predictions(job_dir, num_store_images)
+        evaluator = MultiContextEvaluator(sequence_size, image_size=image_size, device=device)
     batches = _batched_loader_iterator(loader, sequence_size, batch_size, num_eval_sequences)
     for i, (frames, cameras) in enumerate(batches, 1):
-        prediction = generate_batch_predictions(transformer, codebook, frames, cameras)
+        prediction = distributed.map_rows(predict, frames, cameras)
+        if not lead:
+            continue
         evaluator.update_state(**prediction)
         if store_ctx:
             prediction['ctx'] = frames[:, :-1]
         store(**prediction)
         if progress:
             print_progress(i, evaluator)
+    if not lead:
+        return None
     result = evaluator.result()
     write_results(job_dir, result, indent=None)
     print('Results:')

@@ -10,6 +10,11 @@ the S-1 context frames -> generate the query frame's codes -> decode ->
 localize. The JAX package pads the context with an inert frame for the TPU's
 tiles; the port prefills the S-1 frames directly (block-causal attention
 makes the outputs identical).
+
+Under torchrun (parallel/distributed.py) every rank reads the same loader
+batches and predicts its rows of each (distributed.map_rows); rank 0
+gathers the predictions, feeds the evaluator, stores the samples and writes
+results.json. The other ranks return None.
 """
 import json
 import os
@@ -19,6 +24,7 @@ import torch
 
 from ..models import migt_incremental as inc
 from ..ops.image import normalize_images, upload_frames
+from ..parallel import distributed
 from ..utils import geometry
 
 
@@ -223,8 +229,9 @@ def evaluate_transformer(loader, transformer_checkpoint, codebook_checkpoint, jo
     codebook (port job dirs) over a loader (or a callable image_size ->
     loader): each sequence's last frame generated from the others. Writes
     results.json and the first num_store_images samples to job_dir, prints
-    the results and returns them. Runs on `device`: the card unless the
-    caller asks for the CPU."""
+    the results and returns them (on rank 0; None on the other ranks of a
+    process group). Runs on `device`: the card unless the caller asks for
+    the CPU."""
     from .evaluator import Evaluator
 
     transformer, codebook = load_models(transformer_checkpoint, codebook_checkpoint,
@@ -234,11 +241,18 @@ def evaluate_transformer(loader, transformer_checkpoint, codebook_checkpoint, jo
     if callable(loader) and not hasattr(loader, '__getitem__'):
         loader = loader(codebook.config.image_size)
 
-    store_predictions = build_store_predictions(job_dir, num_store_images)
-    evaluator = Evaluator(image_size=image_size, device=device)
+    def predict(frames, cameras):
+        return generate_batch_predictions(transformer, codebook, frames, cameras)
+
+    lead = distributed.rank() == 0
+    if lead:
+        store_predictions = build_store_predictions(job_dir, num_store_images)
+        evaluator = Evaluator(image_size=image_size, device=device)
     batches = _batched_loader_iterator(loader, sequence_size, batch_size, num_eval_sequences)
     for i, (frames, cameras) in enumerate(batches, 1):
-        prediction = generate_batch_predictions(transformer, codebook, frames, cameras)
+        prediction = distributed.map_rows(predict, frames, cameras)
+        if not lead:
+            continue
         prediction.pop('generated_codes')
         evaluator.update_state(**prediction)
         if store_ctx:
@@ -246,6 +260,8 @@ def evaluate_transformer(loader, transformer_checkpoint, codebook_checkpoint, jo
         store_predictions(**prediction)
         if progress:
             print_progress(i, evaluator)
+    if not lead:
+        return None
     result = evaluator.result()
     write_results(job_dir, result)
     print_results(result)

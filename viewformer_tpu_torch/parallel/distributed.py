@@ -1,10 +1,13 @@
-"""Data-parallel training over torch.distributed: the port's counterpart of
-the `data` axis of viewformer_tpu/parallel/mesh.py, the JAX package's only
-parallel mode in training (parameters replicated, the batch split by rows).
+"""Data parallel over torch.distributed: the port's counterpart of the
+`data` axis of viewformer_tpu/parallel/mesh.py, the JAX package's only
+parallel mode in training and inference (parameters replicated, the batch
+split by rows).
 
 Launch with torchrun, one process per card:
 
     torchrun --nproc_per_node=N -m viewformer_tpu_torch train transformer ...
+    torchrun --nproc_per_node=N -m viewformer_tpu_torch generate-codes ...
+    torchrun --nproc_per_node=N -m viewformer_tpu_torch evaluate transformer ...
 
 `initialize_distributed` reads torchrun's environment (RANK, WORLD_SIZE,
 LOCAL_RANK, MASTER_ADDR, MASTER_PORT) and joins the process group: NCCL for
@@ -17,9 +20,19 @@ W*B rows (`shard_rows`), and averages the gradients (`average_gradients`)
 and the metrics (`all_reduce_mean`) over the ranks, so that the replicas
 take the same update: the update of the global batch. The helpers run their
 collectives whenever a process group is initialized, also at world size 1.
+
+Inference (generate-codes and the evaluators) reads the same batches on
+every rank. Each rank computes its `batch_rows` of a batch, and
+`gather_rows` (host arrays, to rank 0 only) or `gather_tensor_rows`
+(tensors, on every rank) brings every rank's rows back in global order;
+rank 0 alone writes what comes of them.
+A batch that the ranks do not divide runs whole on rank 0 while the others
+skip it, as the JAX package dispatches such a batch to one device
+(viewformer_tpu/evaluate/transformer.py:203-218).
 """
 import os
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -72,6 +85,55 @@ def shard_rows(x):
     rank-th of world_size() equal blocks."""
     n = local_batch_size(x.shape[0])
     return x[rank() * n:(rank() + 1) * n]
+
+
+def batch_rows(batch_size):
+    """The slice of a batch of batch_size rows that this rank computes in
+    inference: the rank-th of world_size() equal blocks when the ranks
+    divide the batch; otherwise every row on rank 0 and none elsewhere."""
+    world = world_size()
+    if batch_size % world == 0:
+        n = batch_size // world
+        return slice(rank() * n, (rank() + 1) * n)
+    return slice(0, batch_size if rank() == 0 else 0)
+
+
+def gather_rows(rows):
+    """Every rank's rows, concatenated in rank order, on rank 0 (None on
+    the other ranks, which send theirs and receive nothing); `rows` itself
+    without a process group. rows: this rank's numpy array, or a dict of
+    them (a None value stays None), or None where the rank computed no row
+    of the batch (batch_rows)."""
+    if not is_initialized():
+        return rows
+    gathered = [None] * world_size() if rank() == 0 else None
+    dist.gather_object(rows, gathered, dst=0)
+    if rank() != 0:
+        return None
+    parts = [part for part in gathered if part is not None]
+    if not isinstance(parts[0], dict):
+        return np.concatenate(parts)
+    return {key: None if value is None else np.concatenate([part[key] for part in parts])
+            for key, value in parts[0].items()}
+
+
+def map_rows(fn, *arrays):
+    """fn(*rows) on this rank's batch_rows of `arrays` (one batch on their
+    leading dimension), gathered back (gather_rows): fn's output for the
+    whole batch on rank 0, None on the other ranks."""
+    rows = batch_rows(len(arrays[0]))
+    return gather_rows(fn(*(a[rows] for a in arrays)) if rows.stop > rows.start else None)
+
+
+def gather_tensor_rows(x):
+    """Every rank's x (tensors of one shape, on this rank's device) stacked
+    on the leading dimension in rank order; x itself without a process
+    group."""
+    if not is_initialized():
+        return x
+    parts = [torch.empty_like(x) for _ in range(world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
 
 
 def all_reduce_sum(tensor):
