@@ -45,7 +45,7 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
   6. one train step at full width on 2 sequences on the card (bf16, kernels)
      and on the CPU (f32, plain versions) from the same weights, batch and
      dropout seeds; checks the loss and gradients, then that 3 steps move
-     the parameters the same way: at dropout 0.0 with 12 layers, and at
+     the parameters the same way: at dropout 0.0 with 4 layers, and at
      dropout 0.1 with 2 (the CPU's plain dropout twins hash every attention
      weight in int64, ~15x the time of the plain attention);
   7. the training entry point (train_loop): a token dataset written through
@@ -167,7 +167,26 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      evaluate transformer); (b) the native int64 decode that phase 1 built
      (vfcodec must build: g++ is nvcc's host compiler) on phase 7's token
      shards against the pure-Python decode, record by record, with host ms
-     of each.
+     of each;
+ 14. the model and seq axes of training (model_and_seq_axes): (a) a probe
+     of whether two ranks share card 0 (NCCL refuses two ranks on one
+     device): gloo's all_reduce, all_gather and reduce_scatter of CUDA
+     tensors in 2 spawned processes, and a line that says whether they
+     did; (b) if they did, the 2 ranks over gloo on the card, at full width
+     (MIGTConfig(): d 768, 12 heads, 20 frames) with MESH_LAYERS layers and
+     MESH_B sequences: the meshes 1x1x2 (tensor parallel) and 1x2x1
+     (context parallel) at dropout 0 and 0.1, MESH_STEPS steps each from
+     the same weights and batch against rank 0's one-process steps before
+     it joined (at dropout 0.1 on 1x1x2, one process drawing each head
+     group's attention mask with its shard's seed words,
+     shard_seeded_attention): the loss within TRAIN_LOSS_TOL, every
+     gradient's cosine at least GRAD_COSINE, the parameter updates'
+     (compared()) at least UPDATE_COSINE (GRAD_COSINE on 1x2x1 at dropout
+     0.1), the replicas bit-equal and the exact launches of B1-B8 a rank;
+     otherwise a line that names the CPU tests and the 4-card run that hold
+     those; (c) either way, the default recipe (B=64, S=20, 12 layers)
+     timed in a one-rank NCCL group on create_mesh's 1x1x1 mesh against the
+     plain step: losses bit-equal, exact launches.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -195,6 +214,7 @@ N_REQUESTS = 3
 TRAIN_B, TRAIN_STEPS, TRAIN_STEPS_NO_DROPOUT = 64, 5, 2
 COMPARE_B = 2  # phase 6: the CPU's f32 step at full width is the slow part
 COMPARE_DROPOUT_LAYERS = 2  # phase 6 at dropout 0.1: every kernel, a sixth of the CPU time
+COMPARE_LAYERS = 4  # phase 6 at dropout 0: every kernel; the CPU's time grows with the depth
 RATE = 0.1  # MIGTConfig().dropout
 WORDS = (0x9E3779B9, 12345)  # phase 2's dropout seed words
 
@@ -291,6 +311,21 @@ DDP_CB_SEQUENCES, VIZ_IMAGES = {'train': 4, 'test': 2}, 16
 # to S frames) in batches of AXIS_BATCH sequences (the codebook's of
 # CODEBOOK_BATCH frames), storing AXIS_STORE samples each.
 AXIS_BATCH, AXIS_STORE = 16, 4
+# Phase 14: two ranks share card 0 over gloo (within MESH_PROBE_TIMEOUT and
+# MESH_TIMEOUT seconds), each mesh of MESH_SHAPES (data x seq x model) at
+# each of MESH_RATES taking MESH_STEPS steps of MESH_B sequences at full
+# width and MESH_LAYERS layers; then the default recipe timed for
+# MESH_RECIPE_STEPS steps after a warm-up, plain and in a one-rank group.
+MESH_SHAPES, MESH_RATES = ((1, 1, 2), (1, 2, 1)), (0.0, 0.1)
+MESH_LAYERS, MESH_B, MESH_STEPS, MESH_RECIPE_STEPS = 2, 8, 2, 3
+MESH_PROBE_TIMEOUT, MESH_TIMEOUT = 120, 400
+# Phase 14's bounds: bf16 on the card against bf16 on the same card, not
+# phase 6's f32 on the CPU. On an H100 the losses were within 5.6e-6
+# (relative), the gradient cosines >= 0.999988 and the update cosines
+# >= 0.9959. Each gradient's norm within MESH_GRAD_NORM_TOL of the
+# reference's sees a scale that a cosine does not (an S-fold sum of the
+# gathered frames' gradients, a mean over the wrong group).
+MESH_LOSS_TOL, MESH_GRAD_COSINE, MESH_GRAD_NORM_TOL, MESH_UPDATE_COSINE = 1e-4, 0.9999, 1e-3, 0.99
 
 
 def compared(n_layer):
@@ -3464,6 +3499,355 @@ def build_host_codec():
     return out
 
 
+def cosine(a, b):
+    """Cosine similarity in float64 (an f32 dot over millions of elements
+    rounds past 1)."""
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def norm_ratio(a, b):
+    """|a| / |b| in float64."""
+    return (a.double().norm() / b.double().norm()).item()
+
+
+def step_launches(ac, config, steps):
+    """The launches of `steps` train steps under remat full (train_path's
+    rule)."""
+    if config.dropout > 0:
+        return remat_launches(ac, config, steps, False)
+    n = config.n_layer * steps
+    return only(ac, block_causal_attention_fwd=2 * n, branch_attention_fwd=2 * n,
+                block_causal_attention_bwd=n - steps, branch_attention_bwd=n)
+
+
+def mesh_steps(config, batch, dtype, device, n=2):
+    """n train steps on the current mesh (parallel/mesh.py) from generator
+    seed 0, step i's seeds from seed i, on this rank's rows of the global
+    `batch`, the state sharded over `model` and the frames over `seq`:
+    (losses, host seconds a step, the one-process layout of the final
+    parameters, of their change and of each step's gradients)."""
+    from viewformer_tpu_torch.parallel import distributed, sharding
+    from viewformer_tpu_torch.parallel.mesh import current_mesh
+    from viewformer_tpu_torch.train import transformer as ttt
+
+    mesh = current_mesh()
+    model, state = ttt.init_transformer_state(
+        config, torch.Generator().manual_seed(0), dtype, device, warmup_steps=1)
+    initial = {k: p.detach().clone() for k, p in model.named_parameters()}
+    sharding.shard_transformer_state(model, state, mesh)
+    rows = tuple(distributed.shard_rows(x) for x in batch)
+    step = ttt.make_transformer_train_step(model, config)
+    losses, times, grads = [], [], []
+    for i in range(n):
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, rows, torch.Generator().manual_seed(i))
+        losses.append(metrics['loss'].item())  # waits for the step
+        times.append(time.perf_counter() - t0)
+        grads.append(sharding.unshard_state_dict(
+            {k: p.grad for k, p in model.named_parameters()}, mesh))
+    params = sharding.unshard_state_dict(
+        {k: p.detach() for k, p in model.named_parameters()}, mesh)
+    return losses, times, params, {k: p - initial[k] for k, p in params.items()}, grads
+
+
+@contextlib.contextmanager
+def shard_seeded_attention(model_size):
+    """Within the context, a one-process training forward draws the
+    attention dropout masks of a mesh with `model_size` model ranks (and
+    one data index): the heads in model_size groups, group m with the seed
+    words folded with m, as rank m of the mesh draws them (models/migt.py);
+    the reference a `model` mesh at dropout > 0 is held against."""
+    from viewformer_tpu_torch.models import migt
+    from viewformer_tpu_torch.ops.dropout import fold_rank
+
+    attention = migt.multi_end_block_attention
+
+    def by_shard(kset, vset, qset, dropout_rate=0.0, seeds=None):
+        if dropout_rate <= 0:
+            return attention(kset, vset, qset, dropout_rate, seeds)
+        heads = qset[0].shape[1] // model_size
+        outs = [attention(*(tuple(x[:, m * heads:(m + 1) * heads] for x in group)
+                            for group in (kset, vset, qset)),
+                          dropout_rate, [fold_rank(words, m) for words in seeds])
+                for m in range(model_size)]
+        return tuple(torch.cat(parts, 1) for parts in zip(*outs))
+
+    migt.multi_end_block_attention = by_shard
+    try:
+        yield
+    finally:
+        migt.multi_end_block_attention = attention
+
+
+def replicas_equal(tensors):
+    """True when every rank holds these tensors bit for bit."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().flatten().float() for t in tensors])
+    low, high = flat.clone(), flat.clone()
+    dist.all_reduce(low, op=dist.ReduceOp.MIN)
+    dist.all_reduce(high, op=dist.ReduceOp.MAX)
+    return bool(torch.equal(low, high))
+
+
+def first_card():
+    """Card 0, made the current CUDA device."""
+    torch.cuda.set_device(0)
+    return torch.device('cuda', 0)
+
+
+def two_rank_probe(rank, tmp):
+    """Phase 14 (a), on rank `rank` of 2 on card 0: whether gloo's
+    all_reduce, all_gather and reduce_scatter take CUDA tensors (f32 and
+    bf16) and give the sums: 'ok' or what went wrong for each, to
+    tmp/probe<rank>.json. NCCL refuses two ranks on one device."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group('gloo', init_method=f'file://{tmp}/probe-rendezvous', rank=rank,
+                            world_size=2)
+    out = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.arange(4, device='cuda') + rank).to(dtype)
+            total = x.clone()
+            parts = [torch.empty_like(x) for _ in range(2)]
+            half = torch.empty(2, device='cuda', dtype=dtype)
+            ops = {'all_reduce': (lambda: dist.all_reduce(total), lambda: total.tolist(),
+                                  [1, 3, 5, 7]),
+                   'all_gather': (lambda: dist.all_gather(parts, x),
+                                  lambda: [p.tolist() for p in parts],
+                                  [[0, 1, 2, 3], [1, 2, 3, 4]]),
+                   'reduce_scatter': (lambda: dist.reduce_scatter(half, list(x.chunk(2))),
+                                      lambda: half.tolist(), [[1, 3], [5, 7]][rank])}
+            for name, (run, value, expected) in ops.items():
+                key = f'{name}_{str(dtype).split(".")[-1]}'
+                try:  # the probe's answer: an error means the card cannot be shared
+                    run()
+                    torch.cuda.synchronize()
+                    out[key] = 'ok' if value() == expected else f'wrong sums: {value()}'
+                except Exception as e:
+                    out[key] = f'{type(e).__name__}: {e}'[:300]
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f'probe{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def two_rank_meshes(rank, tmp):
+    """Phase 14 (b) on rank `rank` of 2 sharing card 0 over gloo: rank 0
+    first runs the one-process references alone (and, for the model mesh
+    at dropout > 0, the reference with its masks, shard_seeded_attention);
+    then both join and take MESH_STEPS steps on each of MESH_SHAPES at
+    each of MESH_RATES, from the same weights and batch, with their
+    launches; rank 0 holds each run against its reference. Writes
+    tmp/mesh<rank>.json."""
+    import torch.distributed as dist
+
+    from viewformer_tpu_torch.config import MIGTConfig
+    from viewformer_tpu_torch.ops import attention_cuda as ac
+    from viewformer_tpu_torch.parallel.mesh import create_mesh
+
+    device = first_card()
+    ac.build()
+    base = dataclasses.replace(MIGTConfig(), n_layer=MESH_LAYERS)
+    configs = {rate: dataclasses.replace(base, dropout=rate) for rate in MESH_RATES}
+    batch = train_batch(MESH_B, seed=410, device=device)
+    references = {}
+    if rank == 0:
+        for rate, config in configs.items():
+            references[rate, 1] = mesh_steps(config, batch, torch.bfloat16, device, MESH_STEPS)
+            if rate > 0:
+                with shard_seeded_attention(2):
+                    references[rate, 2] = mesh_steps(config, batch, torch.bfloat16, device,
+                                                     MESH_STEPS)
+    dist.init_process_group('gloo', init_method=f'file://{tmp}/mesh-rendezvous', rank=rank,
+                            world_size=2)
+    out = {'rank': rank}
+    try:
+        for shape in MESH_SHAPES:
+            D, S, M = shape
+            mesh = create_mesh(D, M, seq_parallelism=S)
+            for rate, config in configs.items():
+                ac.reset_launch_counts()
+                losses, times, params, moved, grads = mesh_steps(
+                    config, batch, torch.bfloat16, device, MESH_STEPS)
+                record = {'coords': mesh.coords, 'losses': losses, 'step_s': times,
+                          'launches': counts(ac),
+                          'expected_launches': step_launches(ac, config, MESH_STEPS),
+                          'replicas_equal': replicas_equal(params.values())}
+                if rank == 0:
+                    ref_losses, ref_times, _, ref_moved, ref_grads = \
+                        references[rate, M if rate > 0 else 1]
+                    record.update(
+                        reference='shard-seeded' if rate > 0 and M > 1 else 'one process',
+                        reference_losses=ref_losses, reference_step_s=ref_times,
+                        loss_rel_err=max(abs(a - b) / abs(b)
+                                         for a, b in zip(losses, ref_losses)),
+                        grad_cosine_min=min(cosine(g[k], r[k])
+                                            for g, r in zip(grads, ref_grads)
+                                            for k in r if r[k].any()),
+                        grad_norm_ratio_err=max(abs(norm_ratio(g[k], r[k]) - 1)
+                                                for g, r in zip(grads, ref_grads)
+                                                for k in r if r[k].any()),
+                        update_cosine={k: cosine(moved[k], ref_moved[k])
+                                       for k in compared(MESH_LAYERS)})
+                out['x'.join(map(str, shape)) + f'_dropout_{rate}'] = record
+                del params, moved, grads
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(tmp, f'mesh{rank}.json'), 'w') as f:
+        json.dump(out, f)
+
+
+def spawn_two(fn, tmp, timeout):
+    """fn(rank, tmp) on 2 spawned processes: True when both end with exit
+    code 0 within `timeout` seconds; else both are killed and False."""
+    context = torch.multiprocessing.start_processes(fn, args=(tmp,), nprocs=2, join=False,
+                                                    start_method='spawn')
+    deadline = time.monotonic() + timeout
+    try:
+        while not context.join(timeout=1):
+            if time.monotonic() > deadline:
+                return False
+        return True
+    except torch.multiprocessing.ProcessRaisedException as e:
+        print(f'{fn.__name__}: {e}', flush=True)
+        return False
+    except torch.multiprocessing.ProcessExitedException as e:
+        print(f'{fn.__name__}: {e}', flush=True)
+        return False
+    finally:
+        for process in context.processes:
+            if process.is_alive():
+                process.kill()
+
+
+def recipe_in_group(ac, log, card):
+    """Phase 14 (c): the default recipe (MIGTConfig(), B=TRAIN_B, S=20)
+    plain and in a one-rank NCCL group on the 1x1x1 mesh of create_mesh,
+    MESH_RECIPE_STEPS steps each after a warm-up: losses bit-equal, the
+    step seconds. Returns the group run's launches."""
+    import torch.distributed as dist
+
+    from viewformer_tpu_torch.config import MIGTConfig
+    from viewformer_tpu_torch.parallel.mesh import create_mesh, current_mesh
+
+    config = MIGTConfig()
+    device = first_card()
+    batch = train_batch(TRAIN_B, seed=411, device=device)
+    runs, launches = {}, None
+    for grouped in (False, True):
+        if grouped:
+            os.environ.update(MASTER_ADDR='127.0.0.1', MASTER_PORT=str(free_port()))
+            dist.init_process_group('nccl', rank=0, world_size=1)
+            mesh = create_mesh(1, 1, seq_parallelism=1)
+            check(current_mesh() is mesh, 'create_mesh did not become the current mesh')
+        try:
+            ac.reset_launch_counts()
+            runs[grouped] = mesh_steps(config, batch, torch.bfloat16, device,
+                                       MESH_RECIPE_STEPS + 1)[:2]
+            if grouped:
+                launches = counts(ac)
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    (plain_losses, plain_s), (group_losses, group_s) = runs[False], runs[True]
+    expected = step_launches(ac, config, MESH_RECIPE_STEPS + 1)
+    record = {'phase': 'recipe_in_group', 'card': card, 'backend': 'nccl', 'world_size': 1,
+              'batch': TRAIN_B, 'losses_plain': plain_losses, 'losses_group': group_losses,
+              'step_s_plain': plain_s[1:], 'step_s_group': group_s[1:],
+              'step_s_median_plain': statistics.median(plain_s[1:]),
+              'step_s_median_group': statistics.median(group_s[1:]),
+              'launches': launches, 'expected_launches': expected}
+    emit(record, log)
+    print(f'default recipe in a one-rank NCCL group: {record["step_s_median_group"]:.4f} s a '
+          f'step against {record["step_s_median_plain"]:.4f} s plain ({card})', flush=True)
+    check(plain_losses == group_losses, f'one-rank group losses {group_losses} != '
+                                        f'{plain_losses}')
+    check(launches == expected, f'recipe launches {launches} != {expected}')
+    return launches
+
+
+def model_and_seq_axes(ac, log, card):
+    """Phase 14. Returns the launch counts of its paths."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_mesh_')
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        ended = spawn_two(two_rank_probe, tmp, MESH_PROBE_TIMEOUT)
+        probe = {}
+        for rank in range(2):
+            path = os.path.join(tmp, f'probe{rank}.json')
+            if os.path.exists(path):
+                with open(path) as f:
+                    probe[rank] = json.load(f)
+        # only a collective that raised is a refusal; a crash, a time-out or
+        # a wrong sum fails the phase
+        refusals = {f'rank {rank} {op}': v for rank, p in probe.items() for op, v in p.items()
+                    if v != 'ok'}
+        shared = ended and len(probe) == 2 and not refusals
+        emit({'phase': 'two_rank_probe', 'card': card, 'backend': 'gloo', 'results': probe,
+              'ended': ended, 'two_ranks_share_the_card': shared,
+              'seconds': time.perf_counter() - t0}, log)
+        check(ended and len(probe) == 2, 'phase 14: a rank of the probe crashed or timed out')
+        check(not any(v.startswith('wrong sums') for v in refusals.values()),
+              f'phase 14: gloo gave wrong sums on the card: {refusals}')
+        if shared:
+            print('phase 14: two ranks share the card over gloo (NCCL refuses two ranks on '
+                  'one device); the meshes 1x1x2 and 1x2x1 run on it', flush=True)
+            t0 = time.perf_counter()
+            check(spawn_two(two_rank_meshes, tmp, MESH_TIMEOUT),
+                  'phase 14: the two ranks on the card failed')
+            ranks = []
+            for rank in range(2):
+                with open(os.path.join(tmp, f'mesh{rank}.json')) as f:
+                    ranks.append(json.load(f))
+            record = {'phase': 'two_rank_meshes', 'card': card, 'backend': 'gloo',
+                      'layers': MESH_LAYERS, 'batch': MESH_B, 'steps': MESH_STEPS,
+                      'seconds': time.perf_counter() - t0, 'ranks': ranks}
+            emit(record, log)
+            for run, result in ranks[0].items():
+                if run == 'rank':
+                    continue
+                print(f'{run}: loss rel {result["loss_rel_err"]:.3e}, gradient cosine '
+                      f'>= {result["grad_cosine_min"]:.6f}, gradient norm ratio within '
+                      f'{result["grad_norm_ratio_err"]:.3e} of 1, update cosine >= '
+                      f'{min(result["update_cosine"].values()):.6f} against '
+                      f'{result["reference"]}; '
+                      f'{statistics.median(result["step_s"]):.4f} s a step against '
+                      f'{statistics.median(result["reference_step_s"]):.4f} ({card})',
+                      flush=True)
+                check(result['loss_rel_err'] <= MESH_LOSS_TOL, f'{run}: loss {result}')
+                check(result['grad_cosine_min'] >= MESH_GRAD_COSINE,
+                      f'{run}: gradients {result}')
+                check(result['grad_norm_ratio_err'] <= MESH_GRAD_NORM_TOL,
+                      f'{run}: gradient norms {result}')
+                # the parameters after the steps: their change points the
+                # way one process's does (compared(): phase 6's tensors)
+                check(min(result['update_cosine'].values()) >= MESH_UPDATE_COSINE,
+                      f'{run}: parameter updates {result}')
+                for rank in ranks:
+                    rank_result = rank[run]
+                    check(rank_result['replicas_equal'], f'{run}: replicas differ')
+                    check(rank_result['launches'] == rank_result['expected_launches'],
+                          f'{run}: launches of rank {rank["rank"]} {rank_result["launches"]}')
+                    launches[f'mesh_{run}_rank{rank["rank"]}'] = rank_result['launches']
+        else:
+            print(f'phase 14: gloo refused CUDA tensors ({refusals}), so two ranks cannot '
+                  'share the card; the two-rank checks are '
+                  'tests/test_torch_tensor_parallel.py, tests/test_torch_sequence_parallel.py '
+                  'and tools/ddp_check.py tensor|seq on 4 cards', flush=True)
+        launches['recipe_in_group'] = recipe_in_group(ac, log, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -3509,7 +3893,7 @@ def main():
     launches['train_dropout_0.1'] = train_path(ac, config, log, card, TRAIN_STEPS)
     no_dropout = dataclasses.replace(config, dropout=0.0)
     launches['train_dropout_0'] = train_path(ac, no_dropout, log, card, TRAIN_STEPS_NO_DROPOUT)
-    train_card_vs_cpu(no_dropout, log)
+    train_card_vs_cpu(dataclasses.replace(no_dropout, n_layer=COMPARE_LAYERS), log)
     train_card_vs_cpu(dataclasses.replace(config, n_layer=COMPARE_DROPOUT_LAYERS), log)
     launches['train_loop'] = train_loop(ac, config, log, card)
     torch.cuda.empty_cache()
@@ -3524,6 +3908,8 @@ def main():
     launches.update(remat_ddp_and_cli(ac, log, card))
     torch.cuda.empty_cache()
     launches.update(data_axis_and_host_codec(ac, host_build, log, card))
+    torch.cuda.empty_cache()
+    launches.update(model_and_seq_axes(ac, log, card))
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

@@ -81,14 +81,15 @@ def _steps(config, batch, steps=2):
 
 
 def _record_dropout(monkeypatch, calls):
-    """Record each non-attention dropout site (words, shape, offset) and the
-    attention kernels' seed words of a forward, in call order."""
+    """Record each non-attention dropout site (words, shape, hashed element
+    indices) and the attention kernels' seed words of a forward, in call
+    order."""
     hash_dropout = tmigt.hash_dropout
 
-    def recorded(words, x, rate, offset=0):
+    def recorded(words, x, rate, index=None):
         if rate > 0:
-            calls['sites'].append((tuple(words), tuple(x.shape), offset))
-        return hash_dropout(words, x, rate, offset)
+            calls['sites'].append((tuple(words), tuple(x.shape), index))
+        return hash_dropout(words, x, rate, index)
 
     monkeypatch.setattr(tmigt, 'hash_dropout', recorded)
     for name in ('block_causal_attention_dropout_fwd', 'branch_attention_dropout_fwd'):
@@ -259,11 +260,12 @@ def test_dropout_masks_and_seeds_by_rank(ranks):
     per_rank = [r['dropout'][0] for r in results]
     for rank, calls in enumerate(per_rank):
         assert len(calls['sites']) == len(expected_calls['sites']) > 0
-        for (words, shape, offset), (gwords, gshape, goffset) in zip(calls['sites'],
-                                                                      expected_calls['sites']):
-            assert words == gwords and goffset == 0
+        for (words, shape, index), (gwords, gshape, gindex) in zip(calls['sites'],
+                                                                    expected_calls['sites']):
+            assert words == gwords
+            assert torch.equal(gindex.flatten(), torch.arange(gindex.numel()))
             assert shape[0] * WORLD == gshape[0] and shape[1:] == gshape[1:]
-            mask = hash_uniform(words, shape, offset=offset) >= rate
+            mask = hash_uniform(words, shape, index=index) >= rate
             global_mask = hash_uniform(gwords, gshape) >= rate
             rows = global_mask[rank * shape[0]:(rank + 1) * shape[0]]
             assert torch.equal(mask, rows)

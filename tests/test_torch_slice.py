@@ -167,6 +167,20 @@ state, metrics = make_transformer_train_step(model, config)(
     state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
     torch.Generator().manual_seed(1))
 assert state.step == 1 and np.isfinite(float(metrics['loss']))
+import torch.distributed as dist
+from viewformer_tpu_torch.parallel.mesh import create_mesh, current_mesh
+from viewformer_tpu_torch.parallel.sharding import shard_transformer_state
+dist.init_process_group('gloo', init_method='file://' + os.path.join(out, 'rendezvous'),
+    rank=0, world_size=1)
+mesh = create_mesh(1, 1, seq_parallelism=1)
+assert current_mesh() is mesh
+model, state = init_transformer_state(config, gen, dtype=torch.float32, device='cpu')
+shard_transformer_state(model, state, mesh)
+state, metrics = make_transformer_train_step(model, config)(
+    state, (torch.from_numpy(cameras)[None], torch.from_numpy(tokens)[None]),
+    torch.Generator().manual_seed(1))
+assert state.step == 1 and np.isfinite(float(metrics['loss']))
+dist.destroy_process_group()
 """
 _PARTS['train_loop_with_resume'] = """
 from viewformer_tpu_torch.data.dataset import write_dataset_info, write_shard

@@ -24,12 +24,15 @@
   visualize codebook            frames beside their codebook reconstructions
 
 The flags are those of the JAX package's commands (viewformer_tpu/cli.py),
-without the TPU-only --steps-per-call, --seq-parallelism and
---force-wide-scan, without --wandb for the codebook, with --remat-policy on
-finetune-transformer too, and with --device (default cuda) where a model
-runs. The training commands, generate-codes and evaluate
-transformer|transformer-multictx|codebook run on every card of a torchrun
-launch (data parallel, parallel/distributed.py). `dataset generate`, `dataset
+without the TPU-only --steps-per-call and --force-wide-scan, without
+--wandb for the codebook, with --remat-policy on finetune-transformer too,
+and with --device (default cuda) where a model runs. The training
+commands, generate-codes and evaluate transformer|transformer-multictx|
+codebook run on every card of a torchrun launch (data parallel,
+parallel/distributed.py); `train transformer --seq-parallelism N` splits
+the frames over N of them (the mesh's `seq` axis, parallel/mesh.py). As in
+the JAX package, no flag sets the `model` axis: tensor parallelism is
+train_transformer(mesh=create_mesh(model_parallelism=M)). `dataset generate`, `dataset
 visualize`, `visualize codebook` and the evaluate commands take `--loader
 NAME` and pass every `--loader-<param> VALUE` (or `--loader-<param>=VALUE`)
 to the loader as <param>=VALUE, parsed as a bool, int or float where it
@@ -238,6 +241,10 @@ def _parser():
     for flag, kind in _TRANSFORMER_OPTIONS:
         transformer.add_argument(f'--{flag}', type=kind, default=None)
     transformer.add_argument('--max-samples-per-environment', type=int, default=-1)
+    transformer.add_argument('--seq-parallelism', type=int, default=1,
+                             help="context parallelism: split the residual streams' frames "
+                                  'over this many ranks of a torchrun launch (the mesh '
+                                  'gains a seq axis)')
     _add_remat_policy(transformer)
     transformer.add_argument('--seed', type=int, default=42, help='init and data-order seed')
     transformer.add_argument('--resume', action=argparse.BooleanOptionalAction, default=True)
@@ -484,7 +491,8 @@ def _train_transformer(args):
                       use_bf16=not args.fp32, wandb=args.wandb,
                       max_samples_per_environment=args.max_samples_per_environment,
                       checkpoint_every=args.checkpoint_every,
-                      remat_policy=_remat_policy(args), device=_data_parallel_device(args))
+                      remat_policy=_remat_policy(args), seq_parallelism=args.seq_parallelism,
+                      device=_data_parallel_device(args))
 
 
 def _finetune_transformer(args):

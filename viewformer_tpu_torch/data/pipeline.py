@@ -18,19 +18,19 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from ..ops.image import decode_image
+from ..parallel.distributed import data_index
 from .dataset import fix_legacy_gqn_cameras, get_dataset_info
 from .tfrecord import decode_example, read_records
 
 
 def _host_info():
-    """(rank, world size) of this process: torch.distributed's when a process
-    group is initialised, else (0, 1)."""
-    if torch.distributed.is_available() and torch.distributed.is_initialized():
-        return torch.distributed.get_rank(), torch.distributed.get_world_size()
-    return 0, 1
+    """(data index, data axis size) of this process on the current mesh
+    (parallel/mesh.py; (rank, world size) on the data-only mesh, (0, 1)
+    without a process group): the `seq` and `model` ranks of one data index
+    read the same rows."""
+    return data_index()
 
 
 def _shard_paths(path, split):

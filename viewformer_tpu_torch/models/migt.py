@@ -41,13 +41,21 @@ anchor, ops/branching_attention.FORWARD_OPS), the MLP's c_fc product (the
 batch dimensions. The dropout sites stay in the recompute and regenerate
 their masks from the same seeds, so every policy gives the same gradients.
 
-Data parallel (parallel/distributed.py): a training forward on rank r of W
-holds rows r*B..(r+1)*B-1 of the global batch. It draws the random pose
-multiplier for all W*B rows and takes its own, hashes the non-attention
-dropout masks at the global batch's element indices, and, with W > 1,
-folds the rank into the attention kernels' seed words (ops/dropout.
-fold_rank). At dropout 0 a W-rank step thus computes what one process
-computes over the whole batch.
+The mesh (parallel/mesh.py, the current one of the process): a training
+forward on data index r of D holds rows r*B..(r+1)*B-1 of the global batch.
+It draws the random pose multiplier for all D*B rows and takes its own,
+hashes the non-attention dropout masks at the global arrays' element
+indices, and, with more than one (data, model) shard, folds the shard
+index r*M + m into the attention kernels' seed words (ops/dropout.
+fold_rank). Under `model` (parallel/sharding.py) a rank holds n_head/M
+heads: c_attn and the MLP's c_fc run on their local rows, and c_proj's
+partial sums are summed over `model` before the bias; the model reads the
+local width from the weights' shapes. Under `seq` the streams are cut to
+this rank's frames after the embedding dropout, each attention gathers
+every frame's projections (BranchingAttention), and ln_f's output is
+gathered back, so the head, the losses and the pose criterion
+run on all frames, the same on every `seq` rank. At dropout 0 a step on
+any mesh thus computes what one process computes over the whole batch.
 
 Dtypes follow flax's dtype/param_dtype. `dtype` is the tower's compute dtype;
 `param_dtype` (default: dtype) is what the parameters are stored in. The
@@ -60,6 +68,7 @@ islands: f32 weights and f32 compute whatever the tower's dtype.
 """
 import functools
 import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn as nn
@@ -68,8 +77,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.branching_attention import multi_end_block_attention
-from ..ops.dropout import fold_rank, hash_dropout
-from ..parallel import distributed
+from ..ops.dropout import fold_rank, frame_slice_index, hash_dropout
+from ..parallel.mesh import copy_to_model, current_mesh, gather_frames, reduce_from_model
 from ..utils import geometry
 from .initializers import truncated_normal_
 
@@ -113,9 +122,29 @@ def _mlp_fc_backward(ctx, grad):
 mlp_fc.register_autograd(_mlp_fc_backward, setup_context=_mlp_fc_setup)
 
 
-def _dropout(words, x, rate, rank):
-    """hash_dropout of rank `rank`'s rows x of a global batch (batch leading)."""
-    return hash_dropout(words, x, rate, rank * x.numel())
+class Placement(NamedTuple):
+    """Where a rank's streams [B, T, L, d] lie in the global ones [rows,
+    frames, L, d]: from row batch0 and frame frame0. frames None: the
+    streams hold every frame."""
+    batch0: int = 0
+    frame0: int = 0
+    frames: Optional[int] = None
+
+
+def _dropout(words, x, rate, where):
+    """hash_dropout of x [B, T, ...] at the global arrays' element indices
+    (`where`)."""
+    if rate <= 0.0:
+        return x
+    return hash_dropout(words, x, rate, frame_slice_index(
+        tuple(x.shape), where.batch0, where.frame0, where.frames or x.shape[1], x.device))
+
+
+def _row_parallel(module, x, dtype):
+    """linear(module, x, dtype) of a row-parallel layer: the local product,
+    summed over `model`, then the bias."""
+    partial = F.linear(x.to(dtype), module.weight.to(dtype))
+    return reduce_from_model(partial, current_mesh()) + module.bias.to(dtype)
 
 
 class MLP(nn.Module):
@@ -123,14 +152,21 @@ class MLP(nn.Module):
         super().__init__()
         self.c_fc = nn.Linear(d_in, d_inner)
         self.c_proj = nn.Linear(d_inner, d_out)
+        self.d_inner = d_inner
         self.dtype = dtype
 
-    def forward(self, x, dropout_rate=0.0, words=None, rank=0):
+    def forward(self, x, dropout_rate=0.0, words=None, where=Placement()):
         """With dropout_rate > 0, hash dropout of the output with seed words
-        (rank: the data-parallel rank whose rows x holds)."""
+        at the element indices `where` places x. With c_fc's rows split over
+        `model` (parallel/sharding.py), runs on this rank's rows and sums
+        c_proj's partial products over `model`."""
         dtype = self.dtype
-        h = mlp_fc(x.to(dtype), self.c_fc.weight.to(dtype), self.c_fc.bias.to(dtype))
-        return _dropout(words, linear(self.c_proj, F.gelu(h), dtype), dropout_rate, rank)
+        sharded = self.c_fc.weight.shape[0] != self.d_inner
+        if sharded:
+            x = copy_to_model(x, current_mesh())
+        h = F.gelu(mlp_fc(x.to(dtype), self.c_fc.weight.to(dtype), self.c_fc.bias.to(dtype)))
+        out = _row_parallel(self.c_proj, h, dtype) if sharded else linear(self.c_proj, h, dtype)
+        return _dropout(words, out, dropout_rate, where)
 
 
 class BranchingAttention(nn.Module):
@@ -141,23 +177,40 @@ class BranchingAttention(nn.Module):
         self.n_head = n_head
         self.dtype = dtype
 
-    def forward(self, streams, dropout_rate=0.0, seeds=None, rank=0):
+    def forward(self, streams, dropout_rate=0.0, seeds=None, where=Placement()):
         """streams: a list of [B, T, L, d], stream 0 first -> the list of
         their attention outputs. With dropout_rate > 0, seeds holds the
         attention's two pairs of words (stream 0, side streams), then one
-        pair a stream for the output dropout after c_proj."""
+        pair a stream for the output dropout after c_proj, hashed at the
+        element indices `where` places the streams. With c_attn's heads
+        split over `model` (parallel/sharding.py), runs this rank's heads
+        and sums c_proj's partial products over `model`; with the frames
+        split over `seq`, the attention gathers every frame."""
         B, T, L, d = streams[0].shape
-        H = self.n_head
+        d_local = self.c_attn.weight.shape[0] // 3
+        H = self.n_head * d_local // d
+        sharded = d_local != d
+        mesh = current_mesh()
         vs, qs, ks = [], [], []
         for x in streams:
-            v, q, k = linear(self.c_attn, x, self.dtype).split(d, -1)  # reference chunk order
+            if sharded:
+                x = copy_to_model(x, mesh)
+            # every frame's projections under `seq` (an all_gather, whose
+            # backward reduce-scatters the gradient): the kernels run over
+            # all frames, as on every `seq` rank of the JAX package, whose
+            # shard_map replicates attention over `seq`
+            qkv = gather_frames(linear(self.c_attn, x, self.dtype), mesh, 1)
+            v, q, k = qkv.split(d_local, -1)  # reference chunk order
             for part, heads in ((v, vs), (q, qs), (k, ks)):
-                heads.append(part.reshape(B, T, L, H, d // H).permute(0, 3, 1, 2, 4))
+                heads.append(part.reshape(B, -1, L, H, d // self.n_head).permute(0, 3, 1, 2, 4))
         seeds = seeds or [None] * (2 + len(streams))
         outs = multi_end_block_attention(tuple(ks), tuple(vs), tuple(qs), dropout_rate,
                                          seeds[:2])
-        merged = [out.permute(0, 2, 3, 1, 4).reshape(B, T, L, d) for out in outs]
-        return [_dropout(words, linear(self.c_proj, x, self.dtype), dropout_rate, rank)
+        first = mesh.index('seq') * T  # this rank's frames of the outputs
+        merged = [out[:, :, first:first + T].permute(0, 2, 3, 1, 4).reshape(B, T, L, d_local)
+                  for out in outs]
+        project = _row_parallel if sharded else linear
+        return [_dropout(words, project(self.c_proj, x, self.dtype), dropout_rate, where)
                 for words, x in zip(seeds[2:], merged)]
 
 
@@ -170,16 +223,16 @@ class Block(nn.Module):
         self.mlp = MLP(d_model, 4 * d_model, d_model, dtype)
         self.dtype = dtype
 
-    def forward(self, *streams, dropout_rate=0.0, seeds=None, rank=0):
+    def forward(self, *streams, dropout_rate=0.0, seeds=None, where=Placement()):
         """seeds: the layer's 2 + 2n dropout seed pairs in site order
-        (module docstring), read when dropout_rate > 0; rank: the
-        data-parallel rank whose rows the streams hold."""
+        (module docstring), read when dropout_rate > 0; where: the place of
+        the streams in the global arrays (Placement)."""
         n = len(streams)
         seeds = seeds or [None] * (2 + 2 * n)
         normed = [layer_norm(self.ln_1, x, self.dtype) for x in streams]
-        attended = self.attn(normed, dropout_rate, seeds[:2 + n], rank)
+        attended = self.attn(normed, dropout_rate, seeds[:2 + n], where)
         streams = [x + a for x, a in zip(streams, attended)]
-        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype), dropout_rate, words, rank)
+        return tuple(x + self.mlp(layer_norm(self.ln_2, x, self.dtype), dropout_rate, words, where)
                      for words, x in zip(seeds[2 + n:], streams))
 
 
@@ -324,8 +377,8 @@ class MIGT(nn.Module):
         localization-weight schedule. With config.dropout > 0, training
         reads dropout_seeds: dropout_sites(n streams) pairs of uint32 words in
         site order (module docstring). Under data parallel (a
-        torch.distributed process group), the rows are this rank's of the
-        global batch (module docstring)."""
+        torch.distributed process group), the rows are this rank's data
+        index's of the global batch (module docstring)."""
         cfg = self.config
         B, T_in = input_ids.shape[:2]
         grid = tuple(input_ids.shape[2:])
@@ -333,10 +386,11 @@ class MIGT(nn.Module):
         tokens = input_ids.reshape(B, T_in, L)
         device = self.wpe.device
 
-        rank, world = distributed.rank(), distributed.world_size()
+        mesh = current_mesh()
+        data, n_data = mesh.index('data'), mesh.size('data')
         # train-time random pose-scale augmentation, drawn for the global batch
         if not deterministic and cfg.random_pose_multiplier != 1.0:
-            u = torch.rand(B * world, generator=generator)[rank * B:(rank + 1) * B] * 2 - 1
+            u = torch.rand(B * n_data, generator=generator)[data * B:(data + 1) * B] * 2 - 1
             random_pose_multiplier = (cfg.random_pose_multiplier ** u).to(device)
         else:
             random_pose_multiplier = torch.ones(B, device=device)
@@ -385,20 +439,36 @@ class MIGT(nn.Module):
                                  f'{len(seeds)} dropout seed pairs, got '
                                  f'{None if dropout_seeds is None else len(dropout_seeds)}')
             seeds = [tuple(int(w) for w in pair) for pair in dropout_seeds]
-        streams = tuple(_dropout(words, x.to(self.dtype), dropout_rate, rank)
+        where = Placement(data * B)
+        streams = tuple(_dropout(words, x.to(self.dtype), dropout_rate, where)
                         for words, x in zip(seeds, streams))
+        n_seq = mesh.size('seq')
+        if n_seq > 1:
+            # this rank's frames of the blocks' streams
+            if T_in % n_seq:
+                raise ValueError(f'the seq axis of {n_seq} ranks does not divide the '
+                                 f'{T_in} frames')
+            frames = T_in // n_seq
+            where = Placement(data * B, mesh.index('seq') * frames, T_in)
+            streams = tuple(x[:, where.frame0:where.frame0 + frames] for x in streams)
+        # the (data, model) shard index, folded into the attention's seeds
+        shard, n_shards = (data * mesh.size('model') + mesh.index('model'),
+                           n_data * mesh.size('model'))
         per_layer = 2 + 2 * n
         for i, block in enumerate(self.h):
             layer_seeds = seeds[n + i * per_layer:n + (i + 1) * per_layer]
-            if dropout_rate > 0 and world > 1:
-                layer_seeds[:2] = [fold_rank(words, rank) for words in layer_seeds[:2]]
+            if dropout_rate > 0 and n_shards > 1:
+                layer_seeds[:2] = [fold_rank(words, shard) for words in layer_seeds[:2]]
             if self.remat and torch.is_grad_enabled():
                 streams = checkpoint(block, *streams, dropout_rate=dropout_rate,
-                                     seeds=layer_seeds, rank=rank, use_reentrant=False,
+                                     seeds=layer_seeds, where=where, use_reentrant=False,
                                      **self._remat_context)
             else:
-                streams = block(*streams, dropout_rate=dropout_rate, seeds=layer_seeds, rank=rank)
+                streams = block(*streams, dropout_rate=dropout_rate, seeds=layer_seeds,
+                                where=where)
         streams = [layer_norm(self.ln_f, x, self.dtype) for x in streams]
+        if n_seq > 1:
+            streams = [gather_frames(x, mesh, 1) for x in streams]
 
         output = {'hidden_states': streams}
         # tied output embedding over the real vocabulary: operands rounded to

@@ -49,23 +49,41 @@ def _uniform(words, idx):
     return (hash_bits(words, idx) >> 8).to(torch.float32) / float(1 << 24)
 
 
-def hash_uniform(words, shape, device=None, offset=0):
-    """Uniform [0, 1) f32 of `shape`, element i (row-major) from
-    hash(offset + i)."""
-    n = math.prod(shape)
-    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
-    return _uniform(words, idx).reshape(shape)
+def hash_uniform(words, shape, device=None, index=None):
+    """Uniform [0, 1) f32 of `shape`, element i (row-major) from hash(i),
+    or from hash(index[i]) where `index` (an int64 tensor of `shape`,
+    frame_slice_index) is given."""
+    if index is None:
+        index = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
+    return _uniform(words, index).reshape(shape)
 
 
-def hash_dropout(words, x, rate, offset=0):
+def frame_slice_index(shape, batch0, frame0, frames, device=None):
+    """The row-major element indices, in a global array [rows, frames, ...]
+    of the trailing dimensions of `shape`, of the block [batch0 : batch0 +
+    shape[0], frame0 : frame0 + shape[1]]: ((b * frames + t) * L + l) * d + c
+    for an element (b, t, l, c) of the block. A rank hashes these for its
+    rows (the `data` axis) and frames (the `seq` axis), as XLA hashes the
+    global arrays' indices under the JAX package's mesh; a slice of the
+    frames gives strided indices, not one run."""
+    B, T = shape[:2]
+    inner = math.prod(shape[2:])
+    rows = torch.arange(batch0, batch0 + B, dtype=torch.int64, device=device) * frames
+    t = torch.arange(frame0, frame0 + T, dtype=torch.int64, device=device)
+    starts = (rows[:, None] + t[None, :]) * inner
+    index = starts[..., None] + torch.arange(inner, dtype=torch.int64, device=device)
+    return index.reshape(shape)
+
+
+def hash_dropout(words, x, rate, index=None):
     """Inverted dropout of x: an element is kept iff its uniform is >= rate
     (compared in f32) and kept elements are x / (1 - rate), divided in x's
-    dtype; identity when rate <= 0. offset: the index of x's first element
-    in the array x is a slice of; data-parallel ranks hash the global
-    batch's indices, as XLA does under the JAX package's data axis."""
+    dtype; identity when rate <= 0. index: the indices of x's elements in
+    the global array x is a slice of (frame_slice_index); None: x is the
+    whole array."""
     if rate <= 0.0:
         return x
-    keep = hash_uniform(words, tuple(x.shape), x.device, offset) >= float(np.float32(rate))
+    keep = hash_uniform(words, tuple(x.shape), x.device, index) >= float(np.float32(rate))
     divisor = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / divisor, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -80,11 +98,14 @@ def hash_keep(words, idx, rate):
 
 
 def fold_rank(words, rank):
-    """The attention kernels' seed words of data-parallel rank `rank`: each
-    word hashed with the rank (hash_bits keyed by the words, at indices
-    2 * rank and 2 * rank + 1), so that ranks draw distinct masks over
-    their local (batch, head) rows. The counterpart of the JAX package's
-    jax.random.fold_in of the shard index, not bit-equal to it; used only
-    with more than one rank."""
+    """The attention kernels' seed words of shard `rank`: each word hashed
+    with the shard index (hash_bits keyed by the words, at indices 2 * rank
+    and 2 * rank + 1), so that shards draw distinct masks over their local
+    (batch, head) rows. The shard index is JAX's linear (data, model)
+    index, data_idx * M + model_idx (viewformer_tpu/ops/branching_attention.
+    _shard_index); `seq` ranks compute the same attention and are not
+    folded. The counterpart of the JAX package's jax.random.fold_in of that
+    index, not bit-equal to it; used only with more than one (data, model)
+    shard."""
     idx = torch.tensor([2 * rank, 2 * rank + 1], dtype=torch.int64)
     return tuple(int(w) for w in hash_bits(words, idx))

@@ -1,1 +1,3 @@
-"""Parallel training: data parallel over torch.distributed (distributed.py)."""
+"""Parallel training and inference: the data axis over torch.distributed
+(distributed.py), the (data, seq, model) mesh (mesh.py) and the tensor-
+parallel layouts of MIGT (sharding.py)."""

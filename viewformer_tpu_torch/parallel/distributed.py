@@ -1,7 +1,7 @@
 """Data parallel over torch.distributed: the port's counterpart of the
-`data` axis of viewformer_tpu/parallel/mesh.py, the JAX package's only
-parallel mode in training and inference (parameters replicated, the batch
-split by rows).
+`data` axis of viewformer_tpu/parallel/mesh.py (parameters replicated, the
+batch split by rows), the parallel mode of inference and, with the `seq`
+and `model` axes of parallel/mesh.py beside it, of training.
 
 Launch with torchrun, one process per card:
 
@@ -15,11 +15,15 @@ CUDA devices, gloo for the CPU. Without that environment nothing is
 initialized, and every helper here acts as in one process: rank 0 of 1, the
 reductions return their input.
 
-A train step on rank r of W takes rows r*B..(r+1)*B-1 of a global batch of
-W*B rows (`shard_rows`), and averages the gradients (`average_gradients`)
-and the metrics (`all_reduce_mean`) over the ranks, so that the replicas
-take the same update: the update of the global batch. The helpers run their
-collectives whenever a process group is initialized, also at world size 1.
+The helpers that stand for the data axis read it from the current mesh
+(parallel/mesh.current_mesh; the data-only mesh over the world unless
+create_mesh made another): a train step on data index r of D takes rows
+r*B..(r+1)*B-1 of a global batch of D*B rows (`shard_rows`), averages the
+gradients over its (data, seq) group (`average_gradients`; the ranks of
+one `model` index, which hold the same shards) and the metrics over the
+data group (`all_reduce_mean`), so that the replicas take the same update:
+the update of the global batch. The helpers run their collectives whenever
+a process group is initialized, also at world size 1.
 
 Inference (generate-codes and the evaluators) reads the same batches on
 every rank. Each rank computes its `batch_rows` of a batch, and
@@ -37,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from .mesh import current_mesh
 
 
 def is_initialized():
@@ -71,31 +76,39 @@ def initialize_distributed(device='cuda'):
     return device
 
 
+def data_index():
+    """This rank's index on the current mesh's data axis, and the axis's
+    size."""
+    mesh = current_mesh()
+    return mesh.index('data'), mesh.size('data')
+
+
 def local_batch_size(batch_size):
-    """Rows of a global batch of batch_size that each rank takes; raises
-    unless the ranks divide it."""
-    world = world_size()
-    if batch_size % world:
-        raise ValueError(f'the batch of {batch_size} rows does not split over {world} ranks')
-    return batch_size // world
+    """Rows of a global batch of batch_size that each data index takes;
+    raises unless the data axis divides it."""
+    _, n_data = data_index()
+    if batch_size % n_data:
+        raise ValueError(f'the batch of {batch_size} rows does not split over {n_data} ranks')
+    return batch_size // n_data
 
 
 def shard_rows(x):
     """This rank's rows of x, a global batch on its leading dimension: the
-    rank-th of world_size() equal blocks."""
+    data index's of equal blocks, one a data index."""
     n = local_batch_size(x.shape[0])
-    return x[rank() * n:(rank() + 1) * n]
+    index, _ = data_index()
+    return x[index * n:(index + 1) * n]
 
 
 def batch_rows(batch_size):
     """The slice of a batch of batch_size rows that this rank computes in
-    inference: the rank-th of world_size() equal blocks when the ranks
-    divide the batch; otherwise every row on rank 0 and none elsewhere."""
-    world = world_size()
-    if batch_size % world == 0:
-        n = batch_size // world
-        return slice(rank() * n, (rank() + 1) * n)
-    return slice(0, batch_size if rank() == 0 else 0)
+    inference: the data index's of equal blocks when the data axis divides
+    the batch; otherwise every row on data index 0 and none elsewhere."""
+    index, n_data = data_index()
+    if batch_size % n_data == 0:
+        n = batch_size // n_data
+        return slice(index * n, (index + 1) * n)
+    return slice(0, batch_size if index == 0 else 0)
 
 
 def gather_rows(rows):
@@ -144,8 +157,9 @@ def all_reduce_sum(tensor):
 
 
 def all_reduce_mean(tensors):
-    """{key: 0-d tensor} -> the same keys, each averaged over the ranks, in
-    one collective."""
+    """{key: 0-d tensor} -> the same keys, each averaged over the data
+    axis (the `seq` and `model` ranks of a data index hold the same
+    values), in one collective."""
     if not is_initialized() or not tensors:
         return tensors
     keys = list(tensors)
@@ -153,39 +167,49 @@ def all_reduce_mean(tensors):
               if dist.get_backend() == 'nccl' else torch.device('cpu'))
     stacked = torch.stack([torch.as_tensor(tensors[key], dtype=torch.float32, device=device)
                            for key in keys])
-    dist.all_reduce(stacked)
-    stacked /= world_size()
+    mesh = current_mesh()
+    if mesh.size('data') > 1:
+        dist.all_reduce(stacked, group=mesh.group('data'))
+        stacked /= mesh.size('data')
     return dict(zip(keys, stacked.unbind(0)))
 
 
 def average_gradients(parameters):
-    """Average the parameters' gradients over the ranks, in place: one
-    bucket a dtype, one all_reduce each. Every rank must hold gradients of
-    the same parameters."""
+    """Average the parameters' gradients over this rank's (data, seq) group
+    of the current mesh (the ranks that hold the same `model` shards; the
+    world on a data-only mesh), in place: one bucket a dtype, one
+    all_reduce each. Every rank of the group must hold gradients of the
+    same parameters."""
     if not is_initialized():
         return
+    mesh = current_mesh()
+    n = mesh.group_size('data_seq')
     buckets = {}
     for p in parameters:
         if p.grad is not None:
             buckets.setdefault(p.grad.dtype, []).append(p.grad)
-    world = world_size()
     for grads in buckets.values():
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
-        flat /= world
+        if n > 1:
+            dist.all_reduce(flat, group=mesh.group('data_seq'))
+        flat /= n
         for g, part in zip(grads, flat.split([g.numel() for g in grads])):
             g.copy_(part.view_as(g))
 
 
 def gather_lists(values):
-    """{key: [numbers]} of each rank -> {key: every rank's numbers, in rank
-    order}; `values` itself without a process group. The ranks may hold
-    lists of different lengths (a validation split that runs out earlier on
-    one rank's shards)."""
+    """{key: [numbers]} of each data index -> {key: every data index's
+    numbers, in order}, gathered over the data group (the `seq` and `model`
+    ranks of a data index hold the same numbers); `values` itself without a
+    process group. The ranks may hold lists of different lengths (a
+    validation split that runs out earlier on one rank's shards)."""
     if not is_initialized():
         return values
-    gathered = [None] * world_size()
-    dist.all_gather_object(gathered, values)
+    mesh = current_mesh()
+    if mesh.size('data') == 1:
+        return values
+    gathered = [None] * mesh.size('data')
+    dist.all_gather_object(gathered, values, group=mesh.group('data'))
     merged = {}
     for rank_values in gathered:
         for key, v in rank_values.items():

@@ -4,9 +4,9 @@ CPU processes with a tiny config, against one process. Run it under
 torchrun from the root of a checkout:
 
     python3 -m torch.distributed.run --nproc_per_node=4 \
-        viewformer_tpu_torch/tools/ddp_check.py [inference] [cpu]
+        viewformer_tpu_torch/tools/ddp_check.py [inference | tensor | seq] [cpu]
 
-Without `inference`, training:
+Without a mode, training on the data axis:
 
 1. Before joining the process group, each rank takes 2 dropout-0 train
    steps (MIGTConfig(), the global batch of chip_smoke.TRAIN_B sequences of
@@ -45,9 +45,27 @@ With `inference`, generate-codes and evaluate transformer:
    the seconds of each gather_rows call (rank 0 waits there for the
    slowest rank).
 
+With `tensor` and/or `seq`, training on the mesh's other axes
+(parallel/mesh.py): `tensor` takes the meshes 1x1xN and, at N = 4, 2x1x2;
+`seq` 1xNx1 and, at N = 4, 1x2x2 (data x seq x model). For each mesh:
+1. Before joining, each rank takes 2 dropout-0 train steps (MIGTConfig(),
+   the global batch of chip_smoke.TRAIN_B sequences) and times
+   RECIPE_STEPS default-recipe steps (dropout 0.1) after a warm-up one,
+   alone: the one-process reference.
+2. Joined, create_mesh(D, M, seq_parallelism=S) and the same 2 steps on
+   the mesh (the state sharded over `model`, the frames over `seq`): the
+   losses within chip_smoke.TRAIN_LOSS_TOL, the gradients' cosine at least
+   chip_smoke.GRAD_COSINE and the parameter updates' at least
+   chip_smoke.UPDATE_COSINE against the reference (each tensor gathered to
+   the one-process layout), the replicas equal bit for bit; then the
+   default-recipe steps timed on the mesh with each rank's peak memory.
+3. train_transformer(mesh=) at dropout 0.1 for LOOP_STEPS steps: the job
+   dir holds the one-process layout of the final parameters, which rank 0
+   loads with load_model in one process.
+
 Rank 0 prints each rank's JSON record, writes them to
-chiprun_out/ddp<N>[_inference][_cpu].json and the line `ok` (exit 0) or
-`FAILED` (exit 1).
+chiprun_out/ddp<N>[_inference|_tensor|_seq|_tensor_seq][_cpu].json and the
+line `ok` (exit 0) or `FAILED` (exit 1).
 """
 import dataclasses
 import json
@@ -65,11 +83,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from viewformer_tpu_torch.config import MIGTConfig  # noqa: E402
-from viewformer_tpu_torch.parallel import distributed  # noqa: E402
+from viewformer_tpu_torch.parallel import distributed, sharding  # noqa: E402
+from viewformer_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from viewformer_tpu_torch.train import transformer as ttt  # noqa: E402
 from viewformer_tpu_torch.train.checkpoint import restore_checkpoint  # noqa: E402
 
 LOOP_STEPS = 4
+RECIPE_STEPS = 3
 # results.json's tolerance (rtol = atol): against the witness on the
 # cards, the evaluator tests' (tests/test_torch_evaluate.py); on the CPU
 # (f32) against both the witness and the one-process run
@@ -105,20 +125,6 @@ def steps(config, batch, dtype, device, n=2):
         times.append(time.perf_counter() - t0)
     moved = {k: p.detach() - initial[k] for k, p in model.named_parameters()}
     return losses, times, {k: p.detach().clone() for k, p in model.named_parameters()}, moved
-
-
-def cosine(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
-    return (a @ b / (a.norm() * b.norm())).item()
-
-
-def replicas_equal(tensors):
-    """True when every rank holds these tensors bit for bit."""
-    flat = torch.cat([t.detach().flatten().float() for t in tensors])
-    low, high = flat.clone(), flat.clone()
-    dist.all_reduce(low, op=dist.ReduceOp.MIN)
-    dist.all_reduce(high, op=dist.ReduceOp.MAX)
-    return bool(torch.equal(low, high))
 
 
 def logged_times(job):
@@ -319,12 +325,137 @@ def inference_main(cpu, rank, world):
     sys.exit(0 if ok else 1)
 
 
+def meshes_of(kinds, world):
+    """The (D, S, M) meshes of the `tensor` and `seq` modes."""
+    meshes = []
+    if 'tensor' in kinds:
+        meshes += [(1, 1, world)] + ([(2, 1, 2)] if world == 4 else [])
+    if 'seq' in kinds:
+        meshes += [(1, world, 1)] + ([(1, 2, 2)] if world == 4 else [])
+    return meshes
+
+
+def recipe_times(config, rows, dtype, device):
+    """RECIPE_STEPS default-recipe steps (dropout 0.1) on the current mesh
+    after a warm-up one: (host seconds a step, peak GB on this rank's
+    card, None on the CPU)."""
+    mesh = mesh_lib.current_mesh()
+    model, state = ttt.init_transformer_state(
+        config, torch.Generator().manual_seed(0), dtype, device)
+    sharding.shard_transformer_state(model, state, mesh)
+    batch = tuple(distributed.shard_rows(x) for x in cs.train_batch(rows, seed=401,
+                                                                     device=device))
+    step = ttt.make_transformer_train_step(model, config)
+    if device.type == 'cuda':
+        torch.cuda.reset_peak_memory_stats(device)
+    times = []
+    for i in range(RECIPE_STEPS + 1):
+        if device.type == 'cuda':
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, torch.Generator().manual_seed(i))
+        metrics['loss'].item()
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated(device) / 1e9 if device.type == 'cuda' else None)
+    del model, state
+    if device.type == 'cuda':
+        torch.cuda.empty_cache()
+    return times[1:], peak
+
+
+def mesh_main(kinds, cpu, rank, world):
+    config, rows, dtype, device = setup(cpu)
+    out = {'rank': rank, 'world': world, 'device': str(device), 'mode': '_'.join(kinds)}
+    if not cpu:
+        out['card'] = subprocess.run(
+            ['nvidia-smi', f'--id={device.index}', '--query-gpu=name,power.limit',
+             '--format=csv,noheader'], capture_output=True, text=True, check=True).stdout.strip()
+    no_dropout = dataclasses.replace(config, dropout=0.0)
+    batch = cs.train_batch(rows, seed=400, device=device)
+    ref_losses, _, ref_params, ref_moved, ref_grads = cs.mesh_steps(no_dropout, batch, dtype,
+                                                                 device)
+    out['one_process'] = dict(zip(('step_s', 'peak_gb'),
+                                  recipe_times(config, rows, dtype, device)))
+    tmp = tempfile.mkdtemp(prefix='ddp_check_') if rank == 0 else None
+    if rank == 0:
+        cs.write_token_dataset(os.path.join(tmp, 'tokens'))
+    distributed.initialize_distributed('cpu' if cpu else 'cuda')
+    shared = [tmp]
+    dist.broadcast_object_list(shared, src=0)
+    tmp = shared[0]
+    out['meshes'], ok = {}, True
+    for shape in meshes_of(kinds, world):
+        D, S, M = shape
+        mesh = mesh_lib.create_mesh(D, M, seq_parallelism=S)
+        name = 'x'.join(map(str, shape))
+        losses, times, params, moved, grads = cs.mesh_steps(no_dropout, batch, dtype, device)
+        record = {
+            'coords': mesh.coords, 'losses': losses, 'reference_losses': ref_losses,
+            'step_s': times,
+            'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+            'grad_cosine_min': min(cs.cosine(g[k], r[k]) for g, r in zip(grads, ref_grads)
+                                   for k in r if r[k].any()),
+            'update_cosine': {k: cs.cosine(moved[k], ref_moved[k])
+                              for k in cs.compared(config.n_layer)},
+            'replicas_equal': cs.replicas_equal(params.values())}
+        del params, moved, grads
+        record['recipe_step_s'], record['recipe_peak_gb'] = recipe_times(config, rows, dtype,
+                                                                          device)
+        job = os.path.join(tmp, name)
+        model, _ = ttt.train_transformer(
+            config, os.path.join(tmp, 'tokens'), job, total_steps=LOOP_STEPS, epochs=1,
+            batch_size=rows, progress=False, log_every=1, profile_batch=0, mesh=mesh,
+            device='cpu' if cpu else 'cuda')
+        final = sharding.unshard_state_dict(model.state_dict(), mesh)
+        record['loop_replicas_equal'] = cs.replicas_equal(final.values())
+        if rank == 0:
+            from viewformer_tpu_torch.models import load_model
+
+            restored, step = restore_checkpoint(job, prefer='last')
+            loaded = load_model(job, torch.float32, 'cpu').state_dict()
+            record.update(
+                loop_restored_step=step, loop_times=logged_times(job),
+                loop_restored_equal=all(torch.equal(restored['model'][k], v.cpu())
+                                        for k, v in final.items()),
+                loop_loaded_keys=sorted(loaded) == sorted(final))
+        del model, final
+        if device.type == 'cuda':
+            torch.cuda.empty_cache()
+        out['meshes'][name] = record
+        ok = ok and (record['replicas_equal'] and record['loop_replicas_equal']
+                     and record['loss_rel_err'] <= cs.TRAIN_LOSS_TOL
+                     and record['grad_cosine_min'] >= cs.GRAD_COSINE
+                     and min(record['update_cosine'].values()) >= cs.UPDATE_COSINE
+                     and (rank != 0 or (record['loop_restored_step'] == LOOP_STEPS
+                                        and record['loop_restored_equal']
+                                        and record['loop_loaded_keys'])))
+    out['ok'] = ok
+    results = [None] * world
+    dist.all_gather_object(results, out)
+    dist.destroy_process_group()
+    if rank != 0:
+        return
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(ROOT, 'chiprun_out',
+                           f'ddp{world}_{out["mode"]}{"_cpu" if cpu else ""}.json'), 'w') as f:
+        json.dump(results, f, indent=1)
+    for r in results:
+        print(json.dumps(r))
+    ok = all(r['ok'] for r in results)
+    print('ok' if ok else 'FAILED')
+    sys.exit(0 if ok else 1)
+
+
 def main():
     args = sys.argv[1:]
     cpu = 'cpu' in args
     rank, world = int(os.environ['RANK']), int(os.environ['WORLD_SIZE'])
     if 'inference' in args:
         return inference_main(cpu, rank, world)
+    kinds = [kind for kind in ('tensor', 'seq') if kind in args]
+    if kinds:
+        return mesh_main(kinds, cpu, rank, world)
     config, rows, dtype, device = setup(cpu)
     out = {'rank': rank, 'world': world, 'device': str(device)}
     if not cpu:
@@ -363,14 +494,14 @@ def main():
         'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
         'max_abs_param_diff': max((params[k].float() - ref_params[k].float()).abs().max().item()
                                   for k in params),
-        'update_cosine': {k: cosine(moved[k], ref_moved[k])
+        'update_cosine': {k: cs.cosine(moved[k], ref_moved[k])
                           for k in cs.compared(config.n_layer)},
-        'replicas_equal': replicas_equal(params.values())}
+        'replicas_equal': cs.replicas_equal(params.values())}
     del params, ref_params, moved, ref_moved
 
     job = os.path.join(tmp, 'ddp')
     model = loop(job)
-    out['loop'] = {'replicas_equal': replicas_equal(model.parameters())}
+    out['loop'] = {'replicas_equal': cs.replicas_equal(model.parameters())}
     if rank == 0:
         restored, step = restore_checkpoint(job, prefer='last')
         out['loop'].update(

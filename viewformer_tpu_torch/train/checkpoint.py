@@ -22,7 +22,12 @@ Under data parallel (a torch.distributed world size above 1), rank 0 alone
 writes the config, the aux files and the checkpoints, and its commit is
 synchronous: save() returns on every rank after a barrier that follows the
 commit, so every rank then restores the same files (the JAX package's rule:
-process 0 writes, multi-process saves are synchronous).
+process 0 writes, multi-process saves are synchronous). Under the mesh's
+`model` axis the caller hands save() the one-process layout, gathered from
+the model group on every rank (parallel/sharding.unshard_train_state:
+parameters and Adam's moments), as the JAX package saves global arrays: a
+job dir is the same whatever mesh wrote it, loads with models.load_model in
+one process, and a restore is sliced again for the mesh it resumes on.
 """
 import concurrent.futures
 import json

@@ -14,6 +14,13 @@ Data parallel (parallel/distributed.py, one process per card under
 torchrun): each rank runs the step on its rows of the global batch, the
 gradients are averaged over the ranks before the clip (JAX clips the global
 gradients), and so are the metrics; every rank draws the same seed words.
+The mesh (parallel/mesh.py) adds the JAX package's `seq` and `model` axes:
+train_transformer(seq_parallelism=) or (mesh=create_mesh(model_parallelism=
+..., seq_parallelism=...)). Then the gradients are averaged over the
+rank's (data, seq) group, whose ranks hold the same `model` shards: the
+loss is the same on every `seq` rank and the frame gather's backward sums
+over `seq`, so their mean is the global gradient. A sharded tensor is
+clipped by the norm of the whole tensor.
 
 On the card the attention runs kernels B1/B2 forward and B3/B4 backward
 (ops/branching_attention.py); with config.dropout > 0 (the default recipe,
@@ -43,6 +50,9 @@ from ..models import load_model
 from ..models.migt import MIGT
 from ..ops.branching_attention import FORWARD_OPS
 from ..parallel import distributed
+from ..parallel import mesh as mesh_lib
+from ..parallel.sharding import (shard_transformer_state, sharded_parameters,
+                                 unshard_train_state)
 from ..utils import geometry
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager, restore_checkpoint
@@ -112,14 +122,23 @@ def _weight_decay_mask(model):
 
 
 @torch.no_grad()
-def clip_per_tensor_norm(parameters, max_norm):
+def clip_per_tensor_norm(parameters, max_norm, sharded=(), mesh=None):
     """Scale each gradient on its own to an L2 norm of at most max_norm, in
     place: the reference clips per tensor (tf.clip_by_norm), not by the
-    global norm."""
-    for p in parameters:
-        if p.grad is not None:
-            norm = torch.linalg.vector_norm(p.grad)
-            p.grad.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
+    global norm. sharded: the parameters split over the mesh's `model` axis
+    (parallel/sharding.sharded_parameters), whose norm is the whole
+    tensor's: their squared norms summed over `model` in one all_reduce."""
+    grads = [p.grad for p in parameters if p.grad is not None]
+    split = {id(p.grad) for p in sharded if p.grad is not None}
+    norms = [torch.linalg.vector_norm(g) for g in grads]
+    if split:
+        at = [i for i, g in enumerate(grads) if id(g) in split]
+        squares = torch.stack([norms[i].float() ** 2 for i in at])
+        mesh_lib.all_reduce(squares, mesh, 'model')
+        for i, norm in zip(at, squares.sqrt().unbind(0)):
+            norms[i] = norm.to(norms[i].dtype)
+    for g, norm in zip(grads, norms):
+        g.mul_(torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0))
 
 
 def create_transformer_optimizer(model, config, total_steps=None, warmup_steps=2000):
@@ -184,7 +203,9 @@ def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device=
     `generator`, computing in `dtype`, on `device` (the card unless the
     caller asks for the CPU); remat recomputes each block in the backward,
     keeping what the named remat_policy keeps (resolve_remat_policy).
-    dropout_impl: 'hash' only; 'rng' raises."""
+    dropout_impl: 'hash' only; 'rng' raises. The state is in the
+    one-process layout; parallel/sharding.shard_transformer_state
+    places it on a mesh's `model` axis."""
     device = resolve_device(device)
     model = MIGT(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
                  remat=remat, dropout_impl=dropout_impl,
@@ -227,9 +248,10 @@ def make_transformer_train_step(model, config):
     generator (a CPU torch.Generator) draws the step's dropout seeds
     (draw_dropout_seeds, when config.dropout > 0), then the random pose
     multiplier. One AdamW update of the model's parameters in place, from
-    the gradients averaged over the ranks; state.step advances by one.
-    Metrics are 0-d tensors on the device, averaged over the ranks (reading
-    them waits for the step)."""
+    the gradients averaged over the rank's (data, seq) group of the current
+    mesh; state.step advances by one. Metrics are 0-d tensors on the
+    device, averaged over the data axis (reading them waits for the
+    step)."""
     def train_step(state, batch, generator=None):
         poses, tokens = batch
         lr = state.lr_schedule(state.step)
@@ -243,7 +265,9 @@ def make_transformer_train_step(model, config):
         loss.backward()
         distributed.average_gradients(model.parameters())
         if config.gradient_clip_val and config.gradient_clip_val > 0:
-            clip_per_tensor_norm(model.parameters(), config.gradient_clip_val)
+            mesh = mesh_lib.current_mesh()
+            clip_per_tensor_norm(model.parameters(), config.gradient_clip_val,
+                                 sharded_parameters(model, mesh), mesh)
         state.optimizer.step()
         state.step += 1
         return state, distributed.all_reduce_mean(_metrics(
@@ -311,7 +335,8 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
                       epochs=100, batch_size=None, resume=True, finetune_from=None, seed=42,
                       use_bf16=True, wandb=False, log_every=50, max_samples_per_environment=-1,
                       progress=True, profile_batch=50, dropout_impl='hash', remat=True,
-                      remat_policy=None, checkpoint_every=None, device='cuda'):
+                      remat_policy=None, checkpoint_every=None, mesh=None, seq_parallelism=1,
+                      device='cuda'):
     """The training loop (CLI `train transformer` and `train
     finetune-transformer`). Returns (model, state).
 
@@ -339,15 +364,24 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
     nothing). dropout_impl: 'hash' only. device: the card unless the caller
     asks for the CPU.
 
-    Under torchrun (parallel/distributed.initialize_distributed), each rank
-    reads its own shards (data/pipeline.py) in batches of batch_size / W
-    rows, so a step takes batch_size rows over the W ranks; the validation
-    metrics are the mean over every rank's batches, and rank 0 writes the
-    checkpoints and the metric log. A resumed run restores every rank from
-    rank 0's data cursor."""
+    Under torchrun (parallel/distributed.initialize_distributed), the ranks
+    form `mesh` (parallel/mesh.create_mesh), by default the mesh of
+    create_mesh(seq_parallelism=seq_parallelism): D = W / (S * M) data
+    indices, each reading its own shards (data/pipeline.py) in batches of
+    batch_size / D rows, so a step takes batch_size rows over the data
+    axis. seq_parallelism > 1 splits the blocks' streams by frames over
+    `seq` (models/migt.py, as the JAX package's --seq-parallelism); a
+    mesh whose `model` axis is > 1 shards the state's blocks over it
+    (parallel/sharding.shard_transformer_state), after a restore. The
+    validation metrics are the mean over every data index's batches, and
+    rank 0 writes the checkpoints, in the one-process layout (the shards
+    gathered over `model`), and the metric log. A resumed run restores
+    every rank from rank 0's data cursor."""
     device = resolve_device(device)
     total_steps = total_steps or config.total_steps
     batch_size = batch_size or config.batch_size
+    if mesh is None:
+        mesh = mesh_lib.create_mesh(seq_parallelism=seq_parallelism)
     local_batch = distributed.local_batch_size(batch_size)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
     model, state = init_transformer_state(config, torch.Generator().manual_seed(seed), dtype,
@@ -368,6 +402,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
             aux = ckpt.load_aux()
             if aux is not None and aux.get('step') == start_step:
                 data_state = aux.get('data_iterator')
+    shard_transformer_state(model, state, mesh)
 
     train_step = make_transformer_train_step(model, config)
     eval_step = make_transformer_eval_step(model, config)
@@ -382,8 +417,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
     validation_steps = max(1, min(steps_per_epoch // 10, 100))
 
     def checkpoint_state():
-        return {'model': model.state_dict(), 'optimizer': state.optimizer.state_dict(),
-                'step': state.step}
+        return {**unshard_train_state(model, state.optimizer, mesh), 'step': state.step}
 
     def aux():
         return {'data_iterator': train_data.state} if train_data.state is not None else None
