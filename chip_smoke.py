@@ -179,14 +179,26 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      the same weights and batch against rank 0's one-process steps before
      it joined (at dropout 0.1 on 1x1x2, one process drawing each head
      group's attention mask with its shard's seed words,
-     shard_seeded_attention): the loss within TRAIN_LOSS_TOL, every
-     gradient's cosine at least GRAD_COSINE, the parameter updates'
-     (compared()) at least UPDATE_COSINE (GRAD_COSINE on 1x2x1 at dropout
-     0.1), the replicas bit-equal and the exact launches of B1-B8 a rank;
-     otherwise a line that names the CPU tests and the 4-card run that hold
-     those; (c) either way, the default recipe (B=64, S=20, 12 layers)
-     timed in a one-rank NCCL group on create_mesh's 1x1x1 mesh against the
-     plain step: losses bit-equal, exact launches.
+     shard_seeded_attention): the loss within MESH_LOSS_TOL, every
+     gradient's cosine at least MESH_GRAD_COSINE and its norm within
+     MESH_GRAD_NORM_TOL of the reference's, the parameter updates'
+     (compared()) at least MESH_UPDATE_COSINE, the replicas bit-equal and
+     the exact launches of B1-B8 a rank; otherwise a line that names the
+     CPU tests and the 4-card run that hold those; (c) either way, the
+     default recipe (B=64, S=20, 12 layers) timed in a one-rank NCCL group
+     on create_mesh's 1x1x1 mesh against the plain step: losses bit-equal,
+     exact launches;
+ 15. the colors quality gate of the port, --quick (quality_gate_quick):
+     `python -m viewformer_tpu_torch.tools.quality_gate --quick --device
+     cuda` in a temporary workdir, every stage a process of the CLI on the
+     card (dataset generate, train codebook, generate-codes, train
+     transformer at dropout 0.1, the three evaluators, the finetune leg and
+     its evaluation; the f32 evaluation on the CPU) at the kernels' shapes
+     (8x8-token frames of 128 px, one head of 64, two layers): exit code 0,
+     the report's keys, a finite PSNR, the finetune leg's steps continuing
+     from the restored step, and every kernel of the path (B1, B2, B5-B8)
+     launched, each stage's launches appended to a file by the stage
+     itself (VIEWFORMER_LAUNCH_COUNTS); prints the gate's seconds.
 Any failed check raises, so the exit code is not 0. The last line is
 {"ok": true, "device": {...}}; the full record goes to chiprun_out/chip_smoke.json.
 """
@@ -3848,6 +3860,63 @@ def model_and_seq_axes(ac, log, card):
     return launches
 
 
+# Phase 15: the report keys of tools/quality_gate.py, the kernels its
+# stages launch (training at dropout 0.1, validation and the evaluators),
+# and its time limit in seconds.
+GATE_REPORT_KEYS = ('config', 'timings_s', 'transformer_eval', 'codebook_eval', 'multictx_eval',
+                    'finetune', 'gate', 'ok', 'card', 'transformer_eval_fp32')
+GATE_KERNELS = ('block_causal_attention_fwd', 'branch_attention_fwd',
+                'block_causal_attention_dropout_fwd', 'block_causal_attention_dropout_bwd',
+                'branch_attention_dropout_fwd', 'branch_attention_dropout_bwd')
+GATE_TIMEOUT = 600
+
+
+def quality_gate_quick(ac, log, card):
+    """Phase 15. Returns the launch counts of the gate's stages, summed."""
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_gate_')
+    try:
+        counts_path = os.path.join(tmp, 'launches.jsonl')
+        report_path = os.path.join(tmp, 'report.json')
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, '-m', 'viewformer_tpu_torch.tools.quality_gate', '--quick',
+             '--device', 'cuda', '--workdir', os.path.join(tmp, 'work'), '--out', report_path],
+            cwd=ROOT, env=dict(os.environ, VIEWFORMER_LAUNCH_COUNTS=counts_path),
+            capture_output=True, text=True, timeout=GATE_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f'phase 15: the quick gate exited with {proc.returncode}:\n'
+              f'{proc.stdout[-3000:]}{proc.stderr[-3000:]}')
+        with open(report_path) as f:
+            report = json.load(f)
+        launches, stages = {fn.__name__: 0 for fn in ac.KERNELS}, []
+        with open(counts_path) as f:
+            for line in f:
+                stage = json.loads(line)
+                stages.append({'command': ' '.join(stage['argv'][:2]),
+                               'launches': nonzero(stage['launches'])})
+                for name, n in stage['launches'].items():
+                    launches[name] += n
+        psnr = report['transformer_eval'].get('psnr')
+        emit({'phase': 'quality_gate_quick', 'card': card, 'seconds': seconds,
+              'timings_s': report['timings_s'], 'psnr': psnr,
+              'psnr_fp32': report['transformer_eval_fp32'].get('psnr'),
+              'codebook_psnr': report['codebook_eval'].get('psnr'), 'gate': report['gate'],
+              'finetune': {k: v for k, v in report['finetune'].items() if k != 'eval'},
+              'last_logged_step': report['last_logged_step'], 'launches_by_stage': stages,
+              'launches': launches}, log)
+        print(f'phase 15: the quick quality gate took {seconds:.1f} s ({card})', flush=True)
+        check(all(key in report for key in GATE_REPORT_KEYS),
+              f'phase 15: the report lacks {[k for k in GATE_REPORT_KEYS if k not in report]}')
+        check(psnr is not None and np.isfinite(psnr), f'phase 15: quick PSNR {psnr}')
+        check(report['finetune']['schedules_continue_from_restored_step'],
+              f'phase 15: the finetune leg restarted its steps: {report["finetune"]}')
+        check(all(launches[name] > 0 for name in GATE_KERNELS),
+              f'phase 15: a kernel of the gate was not launched: {launches}')
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: torch.cuda.is_available() is false; '
@@ -3910,6 +3979,8 @@ def main():
     launches.update(data_axis_and_host_codec(ac, host_build, log, card))
     torch.cuda.empty_cache()
     launches.update(model_and_seq_axes(ac, log, card))
+    torch.cuda.empty_cache()
+    launches['quality_gate_quick'] = quality_gate_quick(ac, log, card)
 
     csrc = 'viewformer_tpu_torch/csrc/'
     sources = {

@@ -328,3 +328,62 @@ def test_train_transformer_on_two_ranks(ranks):
     assert step == 4
     for name, value in zero['params'].items():
         assert torch.equal(restored['model'][name], value), name
+
+
+# tools/ddp_check.py's verdict on its multi-card training runs
+# (steps_agree over a compare_steps record), with the readings of four
+# H100s on the meshes 2x1x2 and 1x2x2 (bf16 against one card's bf16) and
+# records that each fault one bound. Every faulty record but the replicas'
+# passes the bounds set for f32 on the CPU against bf16 on the card
+# (chip_smoke.TRAIN_LOSS_TOL, GRAD_COSINE, UPDATE_COSINE): those would pass
+# a wrong mean over the ranks.
+CARD_READINGS = {'replicas_equal': True, 'loss_rel_err': 6.6e-6, 'grad_cosine_min': 0.999983,
+                 'grad_norm_ratio_err': 2.1e-4,
+                 'update_cosine': {'wte.weight': 0.99356, 'h.0.attn.c_attn.weight': 0.99660}}
+VERDICT_CASES = {
+    'card_readings': ({}, True),
+    'loss_off_by_1e-3': ({'loss_rel_err': 1e-3}, False),
+    'gradient_norm_off_by_1e-2': ({'grad_norm_ratio_err': 1e-2}, False),
+    'gradient_cosine_0.9995': ({'grad_cosine_min': 0.9995}, False),
+    'update_cosine_0.98': ({'update_cosine': {'wte.weight': 0.98}}, False),
+    'replicas_differ': ({'replicas_equal': False}, False),
+}
+
+
+@pytest.mark.parametrize('case', sorted(VERDICT_CASES))
+def test_ddp_check_verdict(case):
+    import chip_smoke as cs
+    from viewformer_tpu_torch.tools import ddp_check
+
+    changes, expected = VERDICT_CASES[case]
+    record = dict(CARD_READINGS, **changes)
+    assert ddp_check.steps_agree(record) is expected
+    if not expected and record['replicas_equal']:
+        assert (record['loss_rel_err'] <= cs.TRAIN_LOSS_TOL
+                and record['grad_cosine_min'] >= cs.GRAD_COSINE
+                and min(record['update_cosine'].values()) >= cs.UPDATE_COSINE)
+
+
+def test_ddp_check_compare_steps_sees_a_gradient_scale(monkeypatch):
+    """compare_steps' gradient norm ratio sees a gradient 1% too large,
+    which leaves every cosine at 1: steps_agree fails it. (One process: no
+    group to compare replicas over.)"""
+    import chip_smoke as cs
+    from viewformer_tpu_torch.tools import ddp_check
+
+    monkeypatch.setattr(cs, 'replicas_equal', lambda tensors: True)
+    gen = torch.Generator().manual_seed(0)
+    names = cs.compared(2)
+    params = {k: torch.randn(8, 4, generator=gen) for k in names}
+    moved = {k: torch.randn(8, 4, generator=gen) for k in names}
+    grads = [{k: torch.randn(8, 4, generator=gen) for k in names} for _ in range(2)]
+    reference = ([2.0, 1.5], [0.1, 0.1], params, moved, grads)
+    same = ddp_check.compare_steps(reference, reference, 2)
+    assert same['loss_rel_err'] == 0 and same['grad_norm_ratio_err'] < 1e-12
+    assert ddp_check.steps_agree(same)
+    scaled = ([2.0, 1.5], [0.1, 0.1], params, moved,
+              [{k: 1.01 * g for k, g in step.items()} for step in grads])
+    record = ddp_check.compare_steps(scaled, reference, 2)
+    assert record['grad_cosine_min'] > 1 - 1e-12
+    assert abs(record['grad_norm_ratio_err'] - 0.01) < 1e-6  # 1.01 rounded to f32
+    assert not ddp_check.steps_agree(record)

@@ -50,13 +50,17 @@ Each public function dispatches on where its tensors lie: a CPU tensor takes
 the plain PyTorch version, a CUDA tensor launches the kernel (built from
 csrc/*.cu on first use) or raises. There is no fallback from the kernel to
 the plain version. Each wrapper counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute; with VIEWFORMER_LAUNCH_COUNTS=FILE in the
+environment a process appends them to FILE when it exits.
 """
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -746,4 +750,15 @@ def reset_launch_counts():
         fn.launches = 0
 
 
+def _append_launch_counts(path):
+    with open(path, 'a') as f:
+        f.write(json.dumps({'argv': sys.argv[1:],
+                            'launches': {fn.__name__: fn.launches for fn in KERNELS}}) + '\n')
+
+
 reset_launch_counts()
+# VIEWFORMER_LAUNCH_COUNTS=FILE: the process appends its launch counts to
+# FILE as one JSON line when it exits, so that a tool that runs the CLI's
+# commands as processes (tools/quality_gate.py) can read what they launched.
+if os.environ.get('VIEWFORMER_LAUNCH_COUNTS'):
+    atexit.register(_append_launch_counts, os.environ['VIEWFORMER_LAUNCH_COUNTS'])

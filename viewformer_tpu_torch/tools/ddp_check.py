@@ -1,10 +1,15 @@
 #!/usr/bin/env python3
-"""Checks data parallel (parallel/distributed.py) on N cards, or on N gloo
-CPU processes with a tiny config, against one process. Run it under
-torchrun from the root of a checkout:
+"""Checks data parallel (parallel/distributed.py) and the mesh's other axes
+on N cards, or on N gloo CPU processes with a tiny config, against one
+process; and, on one card, full-depth train steps against the CPU. Run it
+from the root of a checkout, under torchrun:
 
     python3 -m torch.distributed.run --nproc_per_node=4 \
         viewformer_tpu_torch/tools/ddp_check.py [inference | tensor | seq] [cpu]
+
+or alone, on one card:
+
+    python3 -m viewformer_tpu_torch.tools.ddp_check depth
 
 Without a mode, training on the data axis:
 
@@ -12,10 +17,10 @@ Without a mode, training on the data axis:
    steps (MIGTConfig(), the global batch of chip_smoke.TRAIN_B sequences of
    20 frames, bf16 on its card) alone: the one-process reference.
 2. Joined (NCCL; gloo with `cpu`), each rank takes the same 2 steps on its
-   rows: the losses within chip_smoke.TRAIN_LOSS_TOL and the parameter
-   updates' cosine (chip_smoke.compared's tensors) at least
-   chip_smoke.UPDATE_COSINE against the reference, and the replicas equal
-   bit for bit.
+   rows, judged by steps_agree: the losses, every gradient's cosine and
+   norm and the parameter updates' cosines (chip_smoke.compared's tensors)
+   within phase 14's bounds (chip_smoke.MESH_*) of the reference, and the
+   replicas equal bit for bit.
 3. train_transformer at the default dropout 0.1 for LOOP_STEPS steps over
    chip_smoke's token dataset: first on rank 0 alone before joining, then
    on every rank (batch/N rows each); the replicas equal bit for bit, the
@@ -53,12 +58,10 @@ With `tensor` and/or `seq`, training on the mesh's other axes
    RECIPE_STEPS default-recipe steps (dropout 0.1) after a warm-up one,
    alone: the one-process reference.
 2. Joined, create_mesh(D, M, seq_parallelism=S) and the same 2 steps on
-   the mesh (the state sharded over `model`, the frames over `seq`): the
-   losses within chip_smoke.TRAIN_LOSS_TOL, the gradients' cosine at least
-   chip_smoke.GRAD_COSINE and the parameter updates' at least
-   chip_smoke.UPDATE_COSINE against the reference (each tensor gathered to
-   the one-process layout), the replicas equal bit for bit; then the
-   default-recipe steps timed on the mesh with each rank's peak memory.
+   the mesh (the state sharded over `model`, the frames over `seq`), judged
+   by steps_agree against the reference (each tensor gathered to the
+   one-process layout); then the default-recipe steps timed on the mesh
+   with each rank's peak memory.
 3. train_transformer(mesh=) at dropout 0.1 for LOOP_STEPS steps: the job
    dir holds the one-process layout of the final parameters, which rank 0
    loads with load_model in one process.
@@ -66,6 +69,14 @@ With `tensor` and/or `seq`, training on the mesh's other axes
 Rank 0 prints each rank's JSON record, writes them to
 chiprun_out/ddp<N>[_inference|_tensor|_seq|_tensor_seq][_cpu].json and the
 line `ok` (exit 0) or `FAILED` (exit 1).
+
+With `depth` (one card, no torchrun): chip_smoke.py phase 6's comparison at
+MIGTConfig()'s full 12 layers, which the script itself runs at 4 and 2 for
+its time: one train step on 2 sequences on the card (bf16, kernels, remat)
+and on the CPU (f32, plain twins) from the same weights, batch and dropout
+seeds, then 3 steps' updates, at dropout 0 and at 0.1, within phase 6's
+bounds (chip_smoke.TRAIN_LOSS_TOL, GRAD_COSINE, UPDATE_COSINE). It writes
+chiprun_out/ddp_depth.json and prints `ok` or `FAILED`.
 """
 import dataclasses
 import json
@@ -108,23 +119,41 @@ def setup(cpu):
     return MIGTConfig(), cs.TRAIN_B, torch.bfloat16, device
 
 
-def steps(config, batch, dtype, device, n=2):
-    """n train steps from generator seed 0, step i's seeds from seed i:
-    (losses, host seconds a step, parameters, their change)."""
-    model, state = ttt.init_transformer_state(config, torch.Generator().manual_seed(0), dtype,
-                                              device, warmup_steps=1)
-    step = ttt.make_transformer_train_step(model, config)
-    initial = {k: p.detach().clone() for k, p in model.named_parameters()}
-    losses, times = [], []
-    for i in range(n):
-        if device.type == 'cuda':
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, torch.Generator().manual_seed(i))
-        losses.append(metrics['loss'].item())  # waits for the step
-        times.append(time.perf_counter() - t0)
-    moved = {k: p.detach() - initial[k] for k, p in model.named_parameters()}
-    return losses, times, {k: p.detach().clone() for k, p in model.named_parameters()}, moved
+def compare_steps(run, reference, n_layer):
+    """The record of a run's chip_smoke.mesh_steps against the one-process
+    reference's: losses, seconds a step, the losses' largest relative
+    error, the least cosine and the farthest norm ratio from 1 of every
+    nonzero gradient of every step, the updates' cosines of
+    chip_smoke.compared's tensors, the parameters' largest difference and
+    whether the replicas are equal."""
+    losses, times, params, moved, grads = run
+    ref_losses, ref_times, ref_params, ref_moved, ref_grads = reference
+    nonzero = [(g[k], r[k]) for g, r in zip(grads, ref_grads) for k in r if r[k].any()]
+    return {
+        'losses': losses, 'reference_losses': ref_losses, 'step_s': times,
+        'reference_step_s': ref_times,
+        'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+        'grad_cosine_min': min(cs.cosine(g, r) for g, r in nonzero),
+        'grad_norm_ratio_err': max(abs(cs.norm_ratio(g, r) - 1) for g, r in nonzero),
+        'update_cosine': {k: cs.cosine(moved[k], ref_moved[k]) for k in cs.compared(n_layer)},
+        'max_abs_param_diff': max((params[k].float() - ref_params[k].float()).abs().max().item()
+                                  for k in params),
+        'replicas_equal': cs.replicas_equal(params.values())}
+
+
+def steps_agree(record):
+    """Whether a compare_steps record passes: phase 14's bounds, set for
+    bf16 on the card against bf16 on the same card (and so met by f32
+    against f32 on the CPU): the losses within chip_smoke.MESH_LOSS_TOL
+    (relative), every gradient's cosine at least MESH_GRAD_COSINE and its
+    norm within MESH_GRAD_NORM_TOL of the reference's, the updates' cosines
+    at least MESH_UPDATE_COSINE, and the replicas equal. Phase 6's bounds
+    (f32 on the CPU against bf16 on the card) would pass a wrong mean."""
+    return bool(record['replicas_equal']
+                and record['loss_rel_err'] <= cs.MESH_LOSS_TOL
+                and record['grad_cosine_min'] >= cs.MESH_GRAD_COSINE
+                and record['grad_norm_ratio_err'] <= cs.MESH_GRAD_NORM_TOL
+                and min(record['update_cosine'].values()) >= cs.MESH_UPDATE_COSINE)
 
 
 def logged_times(job):
@@ -372,8 +401,7 @@ def mesh_main(kinds, cpu, rank, world):
              '--format=csv,noheader'], capture_output=True, text=True, check=True).stdout.strip()
     no_dropout = dataclasses.replace(config, dropout=0.0)
     batch = cs.train_batch(rows, seed=400, device=device)
-    ref_losses, _, ref_params, ref_moved, ref_grads = cs.mesh_steps(no_dropout, batch, dtype,
-                                                                 device)
+    reference = cs.mesh_steps(no_dropout, batch, dtype, device)
     out['one_process'] = dict(zip(('step_s', 'peak_gb'),
                                   recipe_times(config, rows, dtype, device)))
     tmp = tempfile.mkdtemp(prefix='ddp_check_') if rank == 0 else None
@@ -388,17 +416,9 @@ def mesh_main(kinds, cpu, rank, world):
         D, S, M = shape
         mesh = mesh_lib.create_mesh(D, M, seq_parallelism=S)
         name = 'x'.join(map(str, shape))
-        losses, times, params, moved, grads = cs.mesh_steps(no_dropout, batch, dtype, device)
-        record = {
-            'coords': mesh.coords, 'losses': losses, 'reference_losses': ref_losses,
-            'step_s': times,
-            'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
-            'grad_cosine_min': min(cs.cosine(g[k], r[k]) for g, r in zip(grads, ref_grads)
-                                   for k in r if r[k].any()),
-            'update_cosine': {k: cs.cosine(moved[k], ref_moved[k])
-                              for k in cs.compared(config.n_layer)},
-            'replicas_equal': cs.replicas_equal(params.values())}
-        del params, moved, grads
+        record = {'coords': mesh.coords,
+                  **compare_steps(cs.mesh_steps(no_dropout, batch, dtype, device), reference,
+                                  config.n_layer)}
         record['recipe_step_s'], record['recipe_peak_gb'] = recipe_times(config, rows, dtype,
                                                                           device)
         job = os.path.join(tmp, name)
@@ -422,10 +442,7 @@ def mesh_main(kinds, cpu, rank, world):
         if device.type == 'cuda':
             torch.cuda.empty_cache()
         out['meshes'][name] = record
-        ok = ok and (record['replicas_equal'] and record['loop_replicas_equal']
-                     and record['loss_rel_err'] <= cs.TRAIN_LOSS_TOL
-                     and record['grad_cosine_min'] >= cs.GRAD_COSINE
-                     and min(record['update_cosine'].values()) >= cs.UPDATE_COSINE
+        ok = ok and (steps_agree(record) and record['loop_replicas_equal']
                      and (rank != 0 or (record['loop_restored_step'] == LOOP_STEPS
                                         and record['loop_restored_equal']
                                         and record['loop_loaded_keys'])))
@@ -447,8 +464,41 @@ def mesh_main(kinds, cpu, rank, world):
     sys.exit(0 if ok else 1)
 
 
+def depth_main():
+    """The `depth` mode: chip_smoke.train_card_vs_cpu at MIGTConfig()'s
+    12 layers, at dropout 0 and at the default 0.1, on one card."""
+    if not torch.cuda.is_available():
+        raise SystemExit('ddp_check depth: torch.cuda.is_available() is false; '
+                         'the mode compares a card with the CPU')
+    from viewformer_tpu_torch.ops import attention_cuda as ac
+
+    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    ac.build()
+    log, ok = [], True
+    for rate in (0.0, cs.RATE):
+        t0, records = time.perf_counter(), len(log)
+        try:
+            cs.train_card_vs_cpu(dataclasses.replace(MIGTConfig(), dropout=rate), log)
+        except RuntimeError as err:
+            if len(log) == records:  # not a chip_smoke.check, which emits the record first
+                raise
+            print(err, flush=True)
+            ok = False
+        log[-1].update(card=card, seconds=time.perf_counter() - t0,
+                       cpu_threads=torch.get_num_threads())
+    os.makedirs(os.path.join(ROOT, 'chiprun_out'), exist_ok=True)
+    with open(os.path.join(ROOT, 'chiprun_out', 'ddp_depth.json'), 'w') as f:
+        json.dump(log, f, indent=1)
+    print('ok' if ok else 'FAILED')
+    sys.exit(0 if ok else 1)
+
+
 def main():
     args = sys.argv[1:]
+    if 'depth' in args:
+        return depth_main()
     cpu = 'cpu' in args
     rank, world = int(os.environ['RANK']), int(os.environ['WORLD_SIZE'])
     if 'inference' in args:
@@ -466,7 +516,7 @@ def main():
     # before joining: the one-process reference, and rank 0's plain loop
     no_dropout = dataclasses.replace(config, dropout=0.0)
     batch = cs.train_batch(rows, seed=400, device=device)
-    ref_losses, ref_times, ref_params, ref_moved = steps(no_dropout, batch, dtype, device)
+    reference = cs.mesh_steps(no_dropout, batch, dtype, device)
     tmp = tempfile.mkdtemp(prefix='ddp_check_') if rank == 0 else None
 
     def loop(job):
@@ -486,18 +536,9 @@ def main():
     shared = [tmp]
     dist.broadcast_object_list(shared, src=0)
     tmp = shared[0]
-    shard = tuple(distributed.shard_rows(x) for x in batch)
-    losses, times, params, moved = steps(no_dropout, shard, dtype, device)
-    out['step'] = {
-        'reference_losses': ref_losses, 'losses': losses, 'reference_step_s': ref_times,
-        'step_s': times,
-        'loss_rel_err': max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
-        'max_abs_param_diff': max((params[k].float() - ref_params[k].float()).abs().max().item()
-                                  for k in params),
-        'update_cosine': {k: cs.cosine(moved[k], ref_moved[k])
-                          for k in cs.compared(config.n_layer)},
-        'replicas_equal': cs.replicas_equal(params.values())}
-    del params, ref_params, moved, ref_moved
+    out['step'] = compare_steps(cs.mesh_steps(no_dropout, batch, dtype, device), reference,
+                                config.n_layer)
+    del reference
 
     job = os.path.join(tmp, 'ddp')
     model = loop(job)
@@ -521,10 +562,7 @@ def main():
     for r in results:
         print(json.dumps(r))
     ok = (joined and results[0]['loop']['restored_equal']
-          and all(r['step']['replicas_equal'] and r['loop']['replicas_equal']
-                  and r['step']['loss_rel_err'] <= cs.TRAIN_LOSS_TOL
-                  and min(r['step']['update_cosine'].values()) >= cs.UPDATE_COSINE
-                  for r in results))
+          and all(steps_agree(r['step']) and r['loop']['replicas_equal'] for r in results))
     print('ok' if ok else 'FAILED')
     sys.exit(0 if ok else 1)
 
