@@ -29,7 +29,12 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      frame's keep bits, held bit for bit against the plain twins' mask, at
      the training shapes and at T = 19 (B7 with S = 1 branch, whose q-tile
      is one frame); of B6's, through dV (key CTAs) and dQ (query CTAs); and
-     of B8's, through dV0, dVb and dQ on both key sets;
+     of B8's, through dV0, dVb and dQ on both key sets; then the fused hash
+     dropout (hash_dropout_sm90.cu) against its plain twin at one training
+     site's stream [64, 20, 64, 768], bf16 and f32, over the whole array and
+     a block of a larger one, output and gradient bit for bit, a 1x1x2 seq
+     split's halves against the whole array's frames, and its time beside
+     its bound, the twin's and F.dropout's (another mask, a yardstick);
   3. the full-width serving path (VQGANConfig(), MIGTConfig(), seeded random
      weights, bf16) answers 3 requests of 32 sequences x 20 frames at 128 px
      through generate_batch_predictions; checks outputs and that every kernel
@@ -40,8 +45,9 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      dropout 0.1; f32 parameters, bf16 compute, per-block remat) takes a
      warm-up step and 5 timed steps at 64 sequences x 20 frames through
      process_batch and the train step; checks the losses and the exact
-     launch counts of all eight kernels, and times one site of the
-     non-attention dropout; then the same at dropout 0.0 for 2 steps;
+     launch counts of all nine kernels, and times one site of the
+     non-attention dropout through the kernel and through its plain twin;
+     then the same at dropout 0.0 for 2 steps;
   6. one train step at full width on 2 sequences on the card (bf16, kernels)
      and on the CPU (f32, plain versions) from the same weights, batch and
      dropout seeds; checks the loss and gradients, then that 3 steps move
@@ -142,7 +148,8 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      words: the losses and parameters of each policy against full's (bit
      for bit when full repeats bit for bit), the step seconds, the peak
      memory and the exact launches of B1-B8 (B5/B7 once a layer and step
-     under attn and attn_mlp, twice under the others); (b) train_transformer
+     under attn and attn_mlp, twice under the others) and of the hash
+     dropout (the same under every policy); (b) train_transformer
      (MIGTConfig() at 2 layers, 2 steps of 64 sequences) and train_codebook
      (VQGANConfig(), 2 steps of 32 images, random LPIPS) in an NCCL process
      group of one rank, initialized here, against the same runs without a
@@ -183,8 +190,9 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      gradient's cosine at least MESH_GRAD_COSINE and its norm within
      MESH_GRAD_NORM_TOL of the reference's, the parameter updates'
      (compared()) at least MESH_UPDATE_COSINE, the replicas bit-equal and
-     the exact launches of B1-B8 a rank; otherwise a line that names the
-     CPU tests and the 4-card run that hold those; (c) either way, the
+     the exact launches of B1-B8 and the hash dropout a rank; otherwise a
+     line that names the CPU tests and the 4-card run that hold those; (c)
+     either way, the
      default recipe (B=64, S=20, 12 layers) timed in a one-rank NCCL group
      on create_mesh's 1x1x1 mesh against the plain step: losses bit-equal,
      exact launches;
@@ -229,6 +237,10 @@ COMPARE_DROPOUT_LAYERS = 2  # phase 6 at dropout 0.1: every kernel, a sixth of t
 COMPARE_LAYERS = 4  # phase 6 at dropout 0: every kernel; the CPU's time grows with the depth
 RATE = 0.1  # MIGTConfig().dropout
 WORDS = (0x9E3779B9, 12345)  # phase 2's dropout seed words
+# Phase 2: one stream of a non-attention dropout site of the training path,
+# [B, T, L, d], and the block (batch0, frame0, frames) of a global array
+# that the fused hash dropout is also held at: rows 3.., frames 4.. of 2S
+DROPOUT_SHAPE, DROPOUT_BLOCK = (TRAIN_B, S, 64, 768), (3, 4, 2 * S)
 
 # Phase 2: max|kernel - plain| / max|plain|, plain in f32 from the same bf16
 # inputs. The kernel rounds its output to bf16 (relative 2^-8 = 3.9e-3) and,
@@ -521,6 +533,7 @@ def kernel_checks(ac, log):
     block_causal_bwd_edges(ac, rand, results, log)
     branch_bwd_edges(ac, rand, results, log)
     dropout_probes(ac, log)
+    results['hash_dropout_kernel'] = hash_dropout_checks(ac, log)
     return results
 
 
@@ -892,6 +905,98 @@ def dropout_probes(ac, log):
     torch.cuda.empty_cache()
 
 
+def bits(t):
+    """The tensor's bits as integers, to compare two results bit for bit."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def hash_dropout_checks(ac, log):
+    """Phase 2: the fused hash dropout (hash_dropout_sm90.cu) against its
+    plain twin (ops/dropout.hash_dropout at frame_slice_index's indices) on
+    the card, at one dropout site's stream of the training path,
+    DROPOUT_SHAPE, rate RATE and seed words WORDS: bf16 and f32, the whole
+    array and a block of a larger one (DROPOUT_BLOCK), the output of the
+    kernel and the gradient of the op viewformer::hash_dropout (its
+    backward, the kernel on the output gradient) against autograd through
+    the twin, bit for bit; then a 1x1x2 seq split's two halves of the
+    frames, each hashed at its own placement, against the whole array's
+    frames; and the kernel's one-element path (a row width that is no
+    multiple of 16 bytes, a view one element into its storage), whole and
+    block, bit for bit. Times (CUDA events) of the kernel, the twin and F.dropout at the
+    same shape (another mask: a yardstick of comparable work, not of the
+    same function) beside the kernel's bound. Returns the bf16 record."""
+    import torch.nn.functional as F
+
+    from viewformer_tpu_torch.ops import attention_cost as cost
+    from viewformer_tpu_torch.ops import dropout as d
+
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    s0, s1 = WORDS
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = torch.randn(DROPOUT_SHAPE, generator=gen, device='cuda').to(dtype)
+        grad = torch.randn(DROPOUT_SHAPE, generator=gen, device='cuda').to(dtype)
+        mismatched, max_abs_err = {}, 0.0
+        for form, (b0, f0, frames) in (('whole', (0, 0, S)), ('block', DROPOUT_BLOCK)):
+            index = d.frame_slice_index(tuple(x.shape), b0, f0, frames, x.device)
+            plain = d.hash_dropout(WORDS, x, RATE, index)
+            kernel = ac.hash_dropout_kernel(x, WORDS, RATE, b0, f0, frames)
+            torch.cuda.synchronize()
+            mismatched[f'{form} output'] = (bits(kernel) != bits(plain)).sum().item()
+            max_abs_err = max(max_abs_err, (kernel.float() - plain.float()).abs().max().item())
+            del plain, kernel
+            xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+            (gk,) = torch.autograd.grad(d.placed_hash_dropout(xk, s0, s1, RATE, b0, f0, frames),
+                                        xk, grad)
+            (gp,) = torch.autograd.grad(d.hash_dropout(WORDS, xp, RATE, index), xp, grad)
+            torch.cuda.synchronize()
+            mismatched[f'{form} gradient'] = (bits(gk) != bits(gp)).sum().item()
+            del index, xk, xp, gk, gp
+            torch.cuda.empty_cache()
+        # a 1x1x2 seq split: each rank's frames, hashed at their place
+        whole = ac.hash_dropout_kernel(x, WORDS, RATE)
+        half = S // 2
+        mismatched['seq halves'] = sum(
+            (bits(ac.hash_dropout_kernel(x[:, r * half:(r + 1) * half].contiguous(), WORDS, RATE,
+                                         0, r * half, S))
+             != bits(whole[:, r * half:(r + 1) * half])).sum().item() for r in range(2))
+        kept = (whole != 0).float().mean().item()
+        del whole
+        # the kernel's one-element path: a row width that is no multiple of
+        # a 16-byte vector, and a view that starts one element into its
+        # storage
+        odd = torch.randn(4, S, 7, 97, generator=gen, device='cuda').to(dtype)
+        shifted = torch.randn(1 + 4 * S * 64 * 768, generator=gen, device='cuda').to(dtype)
+        shifted = shifted[1:].view(4, S, 64, 768)
+        for what, y in (('odd width', odd), ('shifted start', shifted)):
+            for form, (b0, f0, frames) in (('whole', (0, 0, S)), ('block', DROPOUT_BLOCK)):
+                index = d.frame_slice_index(tuple(y.shape), b0, f0, frames, y.device)
+                mismatched[f'{what} {form} output'] = (
+                    bits(ac.hash_dropout_kernel(y, WORDS, RATE, b0, f0, frames))
+                    != bits(d.hash_dropout(WORDS, y, RATE, index))).sum().item()
+        del odd, shifted, index
+        ms = time_ms(lambda: ac.hash_dropout_kernel(x, WORDS, RATE))
+        plain_ms = time_ms(lambda: d.hash_dropout(WORDS, x, RATE), n=5)
+        f_dropout_ms = time_ms(lambda: F.dropout(x, RATE, training=True))
+        ops, nbytes, bound, bound_by = cost.hash_dropout_bound_ms(x.numel(), x.element_size())
+        record = {'phase': 'kernel', 'name': 'hash_dropout_kernel', 'form': f'training site, {dtype}',
+                  'shape': list(DROPOUT_SHAPE), 'block': list(DROPOUT_BLOCK), 'rate': RATE,
+                  'seed_words': WORDS, 'mismatched_bits': mismatched, 'kept_share': kept,
+                  'max_abs_err': max_abs_err, 'ms': ms,
+                  'plain_ms': plain_ms, 'operations': ops, 'bytes': nbytes, 'bound_ms': bound,
+                  'bound_by': bound_by, 'share_of_bound': bound / ms, 'library_ms': None,
+                  'f_dropout_ms': f_dropout_ms}
+        emit(record, log)
+        for what, count in mismatched.items():
+            check(count == 0, f'hash_dropout {dtype} {what}: {count} elements differ in bits '
+                  'from the plain twin')
+        check(abs(kept - (1 - RATE)) < 1e-3, f'hash_dropout kept {kept} of the elements')
+        records[dtype] = record
+        del x, grad
+        torch.cuda.empty_cache()
+    return records[torch.bfloat16]
+
+
 def make_requests(n, seed):
     rng = np.random.RandomState(seed)
     requests = []
@@ -1007,20 +1112,27 @@ def train_batch(n, seed, device):
 
 
 def dropout_site_ms(model, n_streams):
-    """CUDA-event ms of one non-attention dropout site (hash_dropout of one
-    [B, S, 64, d] bf16 stream) forward, and forward plus backward; and the
-    site runs a training step makes: the embeddings' n once, each layer's
-    2n (attention output, MLP) in the forward and again in the remat
-    recompute, each backward once."""
-    from viewformer_tpu_torch.ops.dropout import hash_dropout
+    """CUDA-event ms of one non-attention dropout site (one [B, S, 64, d]
+    bf16 stream) forward, and forward plus backward, through the op
+    viewformer::hash_dropout (the kernel) and through its plain twin
+    ops/dropout.hash_dropout; and the site runs of a training step
+    (hash_dropout_launches: forward and remat recompute, backward)."""
+    from viewformer_tpu_torch.ops.dropout import hash_dropout, placed_hash_dropout
 
     x = torch.randn(TRAIN_B, S, 64, model.config.d_model, device='cuda',
                     dtype=torch.bfloat16, requires_grad=True)
     grad = torch.randn_like(x)
-    fwd_ms = time_ms(lambda: hash_dropout(WORDS, x, RATE), n=10)
-    both_ms = time_ms(lambda: hash_dropout(WORDS, x, RATE).backward(grad), n=10)
-    block_sites = model.config.n_layer * 2 * n_streams
-    return fwd_ms, both_ms, n_streams + 2 * block_sites, n_streams + block_sites
+    runs = {
+        'kernel': lambda: placed_hash_dropout(x, *WORDS, RATE, 0, 0, S),
+        'plain': lambda: hash_dropout(WORDS, x, RATE)}
+    times = {}
+    for name, fn in runs.items():
+        fwd_ms = time_ms(fn, n=10)
+        both_ms = time_ms(lambda: fn().backward(grad), n=10)
+        times[name] = (fwd_ms, both_ms)
+    per_step = hash_dropout_launches(model.config, 1, n_streams)
+    bwd_runs = n_streams + 2 * n_streams * model.config.n_layer - 2
+    return times, per_step - bwd_runs, bwd_runs
 
 
 def train_path(ac, config, log, card, steps):
@@ -1061,6 +1173,8 @@ def train_path(ac, config, log, card, steps):
               'block_causal_attention_bwd', 'branch_attention_bwd'])
     expected = {fn.__name__: 0 for fn in ac.KERNELS}
     expected.update(zip(names, (2 * n, 2 * n, n - steps, n)))
+    if config.dropout > 0:
+        expected['hash_dropout_kernel'] = hash_dropout_launches(config, steps, 2 + model.use_localization)
     median = statistics.median(step_s)
     record = {'phase': 'train', 'card': card, 'dropout': config.dropout, 'batch': TRAIN_B,
               'frames_per_sequence': S, 'tokens_per_step': TRAIN_B * S * 64, 'steps': steps,
@@ -1071,12 +1185,14 @@ def train_path(ac, config, log, card, steps):
                   key: value.item() for key, value in metrics.items()},
               'launches': launches, 'expected_launches': expected}
     if config.dropout > 0:
-        fwd_ms, both_ms, fwd_runs, bwd_runs = dropout_site_ms(model, 2 + model.use_localization)
-        site_ms = fwd_runs * fwd_ms + bwd_runs * (both_ms - fwd_ms)
-        record['non_attention_dropout'] = {
-            'site_fwd_ms': fwd_ms, 'site_fwd_bwd_ms': both_ms, 'fwd_runs_per_step': fwd_runs,
-            'bwd_runs_per_step': bwd_runs, 'est_ms_per_step': site_ms,
-            'est_share_of_step': site_ms / (1000 * median)}
+        times, fwd_runs, bwd_runs = dropout_site_ms(model, 2 + model.use_localization)
+        record['non_attention_dropout'] = {'fwd_runs_per_step': fwd_runs,
+                                           'bwd_runs_per_step': bwd_runs}
+        for name, (fwd_ms, both_ms) in times.items():
+            site_ms = fwd_runs * fwd_ms + bwd_runs * (both_ms - fwd_ms)
+            record['non_attention_dropout'][name] = {
+                'site_fwd_ms': fwd_ms, 'site_fwd_bwd_ms': both_ms, 'est_ms_per_step': site_ms,
+                'est_share_of_step': site_ms / (1000 * median)}
     emit(record, log)
     check(all(np.isfinite(losses + [warm_loss])), f'non-finite train loss {losses}')
     check(launches == expected, f'train launch counts {launches} != {expected}')
@@ -1324,11 +1440,7 @@ def train_loop(ac, config, log, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    per_train = {fn.__name__: 0 for fn in ac.KERNELS}
-    per_train.update(block_causal_attention_dropout_fwd=2 * config.n_layer,
-                     branch_attention_dropout_fwd=2 * config.n_layer,
-                     block_causal_attention_dropout_bwd=config.n_layer - 1,
-                     branch_attention_dropout_bwd=config.n_layer)
+    per_train = remat_launches(ac, config, 1, False)
     # an eval step is one forward without dropout: B1 and B2 once a layer
     per_eval = {fn.__name__: 0 for fn in ac.KERNELS}
     per_eval.update(block_causal_attention_fwd=config.n_layer,
@@ -2035,10 +2147,7 @@ def codebook_pipeline(ac, log, card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    per_train = only(ac, block_causal_attention_dropout_fwd=2 * tconfig.n_layer,
-                     branch_attention_dropout_fwd=2 * tconfig.n_layer,
-                     block_causal_attention_dropout_bwd=tconfig.n_layer - 1,
-                     branch_attention_dropout_bwd=tconfig.n_layer)
+    per_train = remat_launches(ac, tconfig, 1, False)
     per_eval = only(ac, block_causal_attention_fwd=tconfig.n_layer,
                     branch_attention_fwd=tconfig.n_layer)
     losses = [r['train/total_loss'] for r in records]
@@ -2962,18 +3071,34 @@ def released_checkpoints_and_co3d(ac, log, card):
     return launches
 
 
+def hash_dropout_launches(config, steps, streams=3):
+    """The fused hash dropout's launches in `steps` train steps of MIGT at
+    dropout > 0 under any remat policy (none saves it) with `streams`
+    streams (3: MIGTConfig()'s localization stream beside the context and
+    generate streams): the forward runs the `streams` embedding sites and
+    each layer's 2 a stream (attention output, MLP output); the remat
+    recompute each layer's again but the last stream's MLP output (the
+    recompute stops once the block's saved tensors are back, and that last
+    site saves none); the backward every site once but the last layer's two
+    of stream 0, whose output reaches no loss."""
+    forward = streams + 2 * streams * config.n_layer
+    recompute = (2 * streams - 1) * config.n_layer
+    return steps * (2 * forward + recompute - 2)
+
+
 def remat_launches(ac, config, steps, saves_attention):
     """The launches of `steps` default-recipe train steps: per layer and
     step the forward kernels B5/B7 run in the forward, and again in the
     remat recompute unless the policy saves their outputs; the backward
     B8 once, B6 once but in the last layer (its stream-0 output reaches no
-    loss)."""
+    loss); the hash dropout as hash_dropout_launches counts."""
     n = config.n_layer * steps
     forward = n if saves_attention else 2 * n
     return only(ac, block_causal_attention_dropout_fwd=forward,
                 branch_attention_dropout_fwd=forward,
                 block_causal_attention_dropout_bwd=n - steps,
-                branch_attention_dropout_bwd=n)
+                branch_attention_dropout_bwd=n,
+                hash_dropout_kernel=hash_dropout_launches(config, steps))
 
 
 def max_difference(params, reference):
@@ -3867,7 +3992,7 @@ GATE_REPORT_KEYS = ('config', 'timings_s', 'transformer_eval', 'codebook_eval', 
                     'finetune', 'gate', 'ok', 'card', 'transformer_eval_fp32')
 GATE_KERNELS = ('block_causal_attention_fwd', 'branch_attention_fwd',
                 'block_causal_attention_dropout_fwd', 'block_causal_attention_dropout_bwd',
-                'branch_attention_dropout_fwd', 'branch_attention_dropout_bwd')
+                'branch_attention_dropout_fwd', 'branch_attention_dropout_bwd', 'hash_dropout_kernel')
 GATE_TIMEOUT = 600
 
 
@@ -3982,20 +4107,22 @@ def main():
     torch.cuda.empty_cache()
     launches['quality_gate_quick'] = quality_gate_quick(ac, log, card)
 
-    csrc = 'viewformer_tpu_torch/csrc/'
+    csrc, pallas = 'viewformer_tpu_torch/csrc/', 'viewformer_tpu/ops/attention_pallas.py'
     sources = {
-        'block_causal_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':52'),
-        'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', ':69'),
-        'block_causal_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':149'),
-        'branch_attention_bwd': (csrc + 'attention_bwd_sm90.cu', ':182'),
-        'block_causal_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', ':331'),
-        'block_causal_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':347'),
-        'branch_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', ':381'),
-        'branch_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', ':414'),
+        'block_causal_attention_fwd': (csrc + 'attention_fwd_sm90.cu', pallas + ':52'),
+        'branch_attention_fwd': (csrc + 'attention_fwd_sm90.cu', pallas + ':69'),
+        'block_causal_attention_bwd': (csrc + 'attention_bwd_sm90.cu', pallas + ':149'),
+        'branch_attention_bwd': (csrc + 'attention_bwd_sm90.cu', pallas + ':182'),
+        'block_causal_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', pallas + ':331'),
+        'block_causal_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', pallas + ':347'),
+        'branch_attention_dropout_fwd': (csrc + 'attention_fwd_sm90.cu', pallas + ':381'),
+        'branch_attention_dropout_bwd': (csrc + 'attention_bwd_sm90.cu', pallas + ':414'),
+        # the JAX package's hash_dropout, which XLA fuses into one kernel
+        'hash_dropout_kernel': (csrc + 'hash_dropout_sm90.cu', 'viewformer_tpu/ops/dropout.py:56'),
     }
     summary = {'kernels': [
         {'name': name, 'route': 'cuda', 'source': sources[name][0],
-         'replaces': 'viewformer_tpu/ops/attention_pallas.py' + sources[name][1],
+         'replaces': sources[name][1],
          'launches': sum(path[name] for path in launches.values()),
          'launches_by_path': {path: counts[name] for path, counts in launches.items()},
          **{key: record[key] for key in ('max_abs_err', 'ms', 'plain_ms', 'bound_ms',

@@ -1,5 +1,6 @@
-"""The FLOP and byte counts that give each attention kernel's bound
-(viewformer_tpu_torch.ops.attention_cost), at the main paths' shapes."""
+"""The FLOP and byte counts that give each attention kernel's bound, and
+the fused hash dropout's (viewformer_tpu_torch.ops.attention_cost), at the
+main paths' shapes."""
 import pytest
 
 from viewformer_tpu_torch.ops import attention_cost as cost
@@ -39,3 +40,14 @@ def test_kernel_cost_counts_only_seen_frames():
     assert flops_b == flops * 5 // 2
     assert nbytes_b == 8 * 2 * 64 * 64 * 2 + 2 * 2 * 3 * 64 * 64 * 2 + 2 * 64 * 4 + \
         2 * 2 * 20 * 64 * 64 * 2
+
+
+@pytest.mark.parametrize('itemsize, want_ms', [(2, 0.0751), (4, 0.1502)], ids=['bf16', 'f32'])
+def test_hash_dropout_bound(itemsize, want_ms):
+    """One training site's stream [64, 20, 64, 768]: each element read and
+    written once, bound by the bytes (its 14 operations an element at 67
+    TOP/s take less than a fifth of that)."""
+    numel = 64 * 20 * 64 * 768
+    ops, nbytes, ms, by = cost.hash_dropout_bound_ms(numel, itemsize)
+    assert (ops, nbytes) == (14 * numel, 2 * itemsize * numel)
+    assert ms == pytest.approx(want_ms, rel=1e-3) and by == 'bytes'

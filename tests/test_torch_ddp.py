@@ -29,8 +29,8 @@ import torch.distributed as dist
 
 from viewformer_tpu_torch.config import MIGTConfig
 from viewformer_tpu_torch.data import dataset as tds
-from viewformer_tpu_torch.models import migt as tmigt
 from viewformer_tpu_torch.ops import attention_cuda, quantizer
+from viewformer_tpu_torch.ops import dropout as tdropout
 from viewformer_tpu_torch.ops.dropout import hash_uniform
 from viewformer_tpu_torch.parallel import distributed
 from viewformer_tpu_torch.train import checkpoint as tckpt
@@ -84,14 +84,15 @@ def _record_dropout(monkeypatch, calls):
     """Record each non-attention dropout site (words, shape, hashed element
     indices) and the attention kernels' seed words of a forward, in call
     order."""
-    hash_dropout = tmigt.hash_dropout
+    hash_dropout = tdropout.hash_dropout
 
     def recorded(words, x, rate, index=None):
         if rate > 0:
             calls['sites'].append((tuple(words), tuple(x.shape), index))
         return hash_dropout(words, x, rate, index)
 
-    monkeypatch.setattr(tmigt, 'hash_dropout', recorded)
+    # the plain twin, which viewformer::hash_dropout runs on the CPU
+    monkeypatch.setattr(tdropout, 'hash_dropout', recorded)
     for name in ('block_causal_attention_dropout_fwd', 'branch_attention_dropout_fwd'):
         def wrapped(*args, _fn=getattr(attention_cuda, name), _name=name, **kwargs):
             calls['attention'].append((_name, tuple(int(w) for w in args[-2])))

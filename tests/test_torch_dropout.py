@@ -3,8 +3,9 @@ twins of the dropout kernels B5-B8 (ops.attention_cuda) against the JAX
 package: the hash against ops/dropout.py and a numpy uint32 replica, the
 twins against the Pallas kernels in interpret mode, the backward's
 D = rowsum(dO * O) against the reference's rowsum, the autograd Functions
-by gradcheck, and multi_end_block_attention with dropout against the JAX
-dispatch's fused path."""
+by gradcheck, multi_end_block_attention with dropout against the JAX
+dispatch's fused path, and the op viewformer::hash_dropout (the fused
+kernel's CPU side) against the plain hash_dropout bit for bit."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -69,6 +70,53 @@ def test_hash_dropout_matches_jax(dtype):
     np.testing.assert_array_equal(port.float().numpy(),
                                   np.asarray(expected.astype(jnp.float32)))
     np.testing.assert_array_equal(tdropout.hash_dropout(WORDS, _t(x), 0.0).numpy(), x)
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize('placement', [None, (3, 2, 9)], ids=['whole', 'block'])
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16], ids=['f32', 'bf16'])
+def test_hash_dropout_op_matches_plain(dtype, placement):
+    """viewformer::hash_dropout (placed_hash_dropout), the op MIGT's sites
+    run, against hash_dropout at frame_slice_index's indices, bit for bit in
+    the output and the gradient, over x's own frames (the whole array, also
+    against the JAX package) and over a block (rows 3.., frames 2.. of 9);
+    its autograd saves no tensor, and CPU tensors launch no kernel."""
+    x = _t(_rand(5, 4, 6, 8, 16)).to(dtype)
+    grad = _t(_rand(6, 4, 6, 8, 16)).to(dtype)
+    b0, f0, frames = placement or (0, 0, x.shape[1])
+    xp, xo = x.clone().requires_grad_(), x.clone().requires_grad_()
+    expected = tdropout.hash_dropout(WORDS, xp, RATE,
+                                     tdropout.frame_slice_index(tuple(x.shape), b0, f0, frames))
+    (expected_grad,) = torch.autograd.grad(expected, xp, grad)
+    saved = []
+    ac.reset_launch_counts()
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        out = tdropout.placed_hash_dropout(xo, *WORDS, RATE, b0, f0, frames)
+    (out_grad,) = torch.autograd.grad(out, xo, grad)
+    assert saved == []
+    assert out.dtype == dtype and torch.equal(_bits(out), _bits(expected))
+    assert torch.equal(_bits(out_grad), _bits(expected_grad))
+    assert all(fn.launches == 0 for fn in ac.KERNELS)
+    if placement is None:
+        jax_out = jdropout.hash_dropout(_jax_key(WORDS), jnp.asarray(x.float().numpy()).astype(
+            jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32), RATE)
+        np.testing.assert_array_equal(out.detach().float().numpy(),
+                                      np.asarray(jax_out.astype(jnp.float32)))
+
+
+def test_hash_dropout_op_seq_halves_are_the_whole_arrays_frames():
+    """A 1x1x2 seq split: each rank's half of the frames, dropped at its
+    placement (frame0 = 0 or T/2 of T), equals those frames of the whole
+    array's dropout."""
+    x = _t(_rand(7, 3, 8, 4, 16)).to(torch.bfloat16)
+    whole = tdropout.placed_hash_dropout(x, *WORDS, RATE, 0, 0, 8)
+    for frame0 in (0, 4):
+        half = tdropout.placed_hash_dropout(x[:, frame0:frame0 + 4].contiguous(), *WORDS, RATE,
+                                            0, frame0, 8)
+        assert torch.equal(_bits(half), _bits(whole[:, frame0:frame0 + 4]))
 
 
 def test_hash_keep_matches_host_replica():
@@ -290,6 +338,11 @@ def test_dropout_wrappers_refuse_other_devices_and_rates():
         ac.branch_attention_dropout_bwd(x, x, x, x, x, x, x, lse, 64, WORDS, RATE)
     with pytest.raises(ValueError, match=r'rate must be in \(0, 1\)'):
         ac._dropout_args('kernel', WORDS, 1.0)
+    with pytest.raises(ValueError, match='no kernel'):
+        ac.hash_dropout_kernel(x, WORDS, RATE)
+    for rate in (0.0, 1.0):
+        with pytest.raises(ValueError, match=r'rate must be in \(0, 1\)'):
+            ac.hash_dropout_kernel(torch.zeros(2, 3), WORDS, rate)
     assert ac._dropout_args('kernel', (-1, 1 << 32), RATE) == (
         0xFFFFFFFF, 0, float(np.float32(RATE)), float(np.float32(1 / 0.9)))
     assert all(fn.launches == 0 for fn in ac.KERNELS)

@@ -109,19 +109,25 @@ CASES = {
     'f32-in-order-resumed': dict(output_dtype='float32', shuffle=False,
                                  start_state={'epoch': 1, 'batch': 5}),
     'uint8-shuffled-resumed': dict(output_dtype='uint8', start_state={'epoch': 0, 'batch': 7}),
+    # the colors quality gate's codebook stage: batches of 32 at seed 42, as
+    # train_codebook asks (45 of them cross the 1300-frame epoch)
+    'gate-flags': dict(output_dtype='uint8', seed=42, batch_size=32),
 }
 
 
 @pytest.mark.parametrize('case', list(CASES))
 def test_load_image_dataset_matches_jax(image_dataset, monkeypatch, case):
-    """Batches of 64 across an epoch boundary (20 a 1300-frame epoch), equal
-    to the JAX package's batch for batch, with the same cursors."""
+    """Batches of 64 across an epoch boundary (20 a 1300-frame epoch), or of
+    32 at the quality gate's seed (45), equal to the JAX package's batch for
+    batch, with the same cursors."""
     monkeypatch.setenv('VIEWFORMER_NATIVE_JPEG', '0')
     kwargs = dict(split='train', repeat=-1, seed=11)
     kwargs.update(CASES[case])
     n = 3 if kwargs.get('repeat') == 1 else 25
-    port = tpipeline.load_image_dataset(image_dataset, 64 if n > 3 else 16, 8, **kwargs)
-    expected = jpipeline.load_image_dataset(image_dataset, 64 if n > 3 else 16, 8, **kwargs)
+    batch_size = kwargs.pop('batch_size', 64 if n > 3 else 16)
+    n = 45 if batch_size == 32 else n
+    port = tpipeline.load_image_dataset(image_dataset, batch_size, 8, **kwargs)
+    expected = jpipeline.load_image_dataset(image_dataset, batch_size, 8, **kwargs)
     got, want = _batches(port, n), _batches(expected, n)
     assert len(got) == len(want) >= 2
     for a, b in zip(got, want):

@@ -128,12 +128,13 @@ def test_quick_gate_on_cpu_without_jax(tmp_path):
         'train/finetune-transformer', 'evaluate/transformer-finetuned'}
     assert log.read_text() == '', f'imported: {log.read_text()}'
     # each stage that loaded the kernels' module appended its launches at
-    # exit: none on the CPU, where the plain versions run
+    # exit (B1-B8 and the hash dropout): none on the CPU, where the plain
+    # versions run
     stages = [json.loads(line) for line in launches.read_text().splitlines()]
     assert [' '.join(stage['argv'][:2]) for stage in stages] == [
         'train codebook', 'train transformer', 'evaluate transformer', 'evaluate codebook',
         'evaluate transformer-multictx', 'train finetune-transformer', 'evaluate transformer']
-    assert all(len(stage['launches']) == 8 and not any(stage['launches'].values())
+    assert all(len(stage['launches']) == 9 and not any(stage['launches'].values())
                for stage in stages)
 
 

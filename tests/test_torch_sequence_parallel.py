@@ -24,7 +24,7 @@ import torch
 from test_torch_tensor_parallel import (CONFIG, DROPOUT, LOOP, LOOP_KWARGS, LOSS_RTOL,
                                         NOISE_ATOL, RTOL, assert_steps_equal, jax_steps,
                                         join, port_steps, seed_words_by_shard, start)
-from viewformer_tpu_torch.models import migt as tmigt
+from viewformer_tpu_torch.ops import dropout as tdropout
 from viewformer_tpu_torch.ops.dropout import hash_uniform
 from viewformer_tpu_torch.parallel import mesh as mesh_lib
 from viewformer_tpu_torch.train import transformer as ttt
@@ -48,7 +48,7 @@ def dropout_run():
     mask) and the attention seed words recorded, then a second step:
     (sites, seed words, the steps' port_steps results)."""
     sites, seeds = [], []
-    hash_dropout = tmigt.hash_dropout
+    hash_dropout = tdropout.hash_dropout
 
     def recorded(words, x, rate, index=None):
         if rate > 0 and len(sites) < SITES:
@@ -57,7 +57,8 @@ def dropout_run():
         return hash_dropout(words, x, rate, index)
 
     with pytest.MonkeyPatch.context() as patch:
-        patch.setattr(tmigt, 'hash_dropout', recorded)
+        # the plain twin, which viewformer::hash_dropout runs on the CPU
+        patch.setattr(tdropout, 'hash_dropout', recorded)
         results = port_steps(DROPOUT, record=seeds)
     return sites, seeds, results
 

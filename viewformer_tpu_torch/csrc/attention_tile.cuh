@@ -1,10 +1,13 @@
-// The hash of the in-kernel attention dropout, shared by the forward kernels
-// B5 and B7 (attention_fwd_sm90.cu) and the backward kernels B6 and B8
-// (attention_bwd_sm90.cu), so that both sides hash with one copy of the code.
+// The in-kernel attention dropout, shared by the forward kernels B5 and B7
+// (attention_fwd_sm90.cu) and the backward kernels B6 and B8
+// (attention_bwd_sm90.cu), over the hash that every dropping kernel of the
+// port takes from dropout_hash.cuh.
 #pragma once
 
 #include <math.h>
 #include <stdint.h>
+
+#include "dropout_hash.cuh"
 
 namespace tile {
 
@@ -24,10 +27,9 @@ struct Dropout {
 // The hash taken apart, so that the 32 keep tests a thread makes for one
 // (query frame, key frame) pair cost few integer operations. The hash's
 // first step, h = idx * kPrime1 + s0, is formed as a frame base plus steps
-// along the wgmma accumulator fragment's rows and columns; the test
-// u >= rate with u = (h' >> 8) / 2^24 (exact in f32) is
-// h' >= ceil(rate * 2^24) << 8 on the final hash h', in integers.
-constexpr unsigned kPrime1 = 2654435761u;
+// along the wgmma accumulator fragment's rows and columns; the keep test
+// h >= threshold24(rate) << 8 is dropout_hash.cuh's on the final hash h.
+using dropout_hash::kPrime1;
 
 struct Keep {
   unsigned s0, s1;
@@ -37,7 +39,7 @@ struct Keep {
 };
 
 __host__ __device__ __forceinline__ Keep make_keep(const Dropout& d, unsigned stride) {
-  const unsigned n = (unsigned)ceilf(d.rate * 16777216.f);  // rate * 2^24 is exact
+  const unsigned n = dropout_hash::threshold24(d.rate);
   const bool some = n < (1u << 24);
   return Keep{d.s0, d.s1, some ? n << 8 : 0u, some ? d.scale : 0.f, stride * kPrime1};
 }
@@ -48,14 +50,9 @@ __host__ __device__ __forceinline__ Keep make_keep(const Dropout& d, unsigned st
 // index steps of a column and a row, times kPrime1.
 __device__ __forceinline__ bool keep_test(const Keep& k, unsigned h0, unsigned col1,
                                           unsigned row1, int i) {
-  unsigned h =
+  const unsigned h =
       h0 + (unsigned)(8 * (i >> 2) + (i & 1)) * col1 + (unsigned)(8 * ((i >> 1) & 1)) * row1;
-  h ^= h >> 15;
-  h *= 2246822519u;
-  h ^= (h >> 13) ^ k.s1;
-  h *= 3266489917u;
-  h ^= h >> 16;
-  return h >= k.threshold;
+  return dropout_hash::finish(h, k.s1) >= k.threshold;
 }
 
 // The keep factor (scale or 0) of element i.

@@ -77,7 +77,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..ops.branching_attention import multi_end_block_attention
-from ..ops.dropout import fold_rank, frame_slice_index, hash_dropout
+from ..ops.dropout import fold_rank, placed_hash_dropout
 from ..parallel.mesh import copy_to_model, current_mesh, gather_frames, reduce_from_model
 from ..utils import geometry
 from .initializers import truncated_normal_
@@ -133,11 +133,13 @@ class Placement(NamedTuple):
 
 def _dropout(words, x, rate, where):
     """hash_dropout of x [B, T, ...] at the global arrays' element indices
-    (`where`)."""
+    (`where`), through the op viewformer::hash_dropout (one kernel pass on
+    the card)."""
     if rate <= 0.0:
         return x
-    return hash_dropout(words, x, rate, frame_slice_index(
-        tuple(x.shape), where.batch0, where.frame0, where.frames or x.shape[1], x.device))
+    s0, s1 = (int(w) & 0xFFFFFFFF for w in words)
+    return placed_hash_dropout(x.contiguous(), s0, s1, float(rate), where.batch0, where.frame0,
+                               where.frames or x.shape[1])
 
 
 def _row_parallel(module, x, dtype):

@@ -1,5 +1,5 @@
-"""The work of each attention kernel (B1-B8) from its shapes, and the least
-time an H100 could take for it.
+"""The work of each attention kernel (B1-B8) and of the fused hash dropout
+from their shapes, and the least time an H100 could take for it.
 
 Counted as a roofline counts it: each input read once and each output
 written once, whatever a kernel reads again; only the frames the mask lets a
@@ -15,6 +15,12 @@ same products as B1-B4.
 # bytes a second, at the card's full power limit of 700 W
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
+# 32-bit operations outside the tensor cores (the data sheet's float32 rate)
+PEAK_F32_OPS = 67e12
+# the fused hash dropout's operations an element: the hash's first step and
+# its 9 mixing steps, the keep test (shift, compare), the f32 division and
+# the select
+HASH_DROPOUT_OPS = 14
 
 _PRODUCTS = {False: 2, True: 5}  # forward, backward
 
@@ -56,3 +62,15 @@ def bound_ms(flops, nbytes):
     compute_ms = flops / PEAK_BF16_FLOPS * 1e3
     memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return (compute_ms, 'operations') if compute_ms >= memory_ms else (memory_ms, 'bytes')
+
+
+def hash_dropout_bound_ms(numel, itemsize):
+    """(operations, bytes, ms, 'operations' or 'bytes') of one pass of the
+    fused hash dropout over numel elements of itemsize bytes: each element
+    read once and written once, HASH_DROPOUT_OPS 32-bit operations at
+    PEAK_F32_OPS."""
+    ops, nbytes = HASH_DROPOUT_OPS * numel, 2 * itemsize * numel
+    compute_ms = ops / PEAK_F32_OPS * 1e3
+    memory_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound = (compute_ms, 'operations') if compute_ms >= memory_ms else (memory_ms, 'bytes')
+    return (ops, nbytes) + bound

@@ -23,9 +23,16 @@ csrc/ source named beside it:
                                       sum over branches of _fbd_bwd (B8;
                                       attention_bwd_sm90.cu)
 
-All eight are built for Hopper, as two templates: the forward kernels B1,
-B2, B5 and B7 (attention_fwd_sm90.cu) and the backward kernels B3, B4, B6
-and B8 (attention_bwd_sm90.cu). A producer warp feeds 64 x 64 bf16 frame
+and, beside them, the one elementwise kernel of the port:
+
+  hash_dropout_kernel                 the residual, MLP and embedding hash
+                                      dropout, which the JAX package's
+                                      hash_dropout (ops/dropout.py) leaves to
+                                      XLA's fusion (hash_dropout_sm90.cu)
+
+The attention kernels are built for Hopper, as two templates: the forward
+kernels B1, B2, B5 and B7 (attention_fwd_sm90.cu) and the backward kernels
+B3, B4, B6 and B8 (attention_bwd_sm90.cu). A producer warp feeds 64 x 64 bf16 frame
 tiles by TMA through an mbarrier ring to consumer warpgroups that multiply
 with wgmma and keep the softmax (and its gradient) on their accumulator
 registers. The tensor cores bound B1-B4 at the training shapes, and the
@@ -36,7 +43,9 @@ B5-B8 are B1-B4 with inverted dropout on the softmax weights, the mask
 hashed from two uint32 seed words and each weight's global index
 (ops/dropout.py; the index spaces are the Pallas kernels', see
 bc_weight_index and branch_weight_indices), so the masks are the Pallas
-kernels' bit for bit. The dropout kernels take the one-shot form only.
+kernels' bit for bit. The dropout kernels take the one-shot form only. The
+hash itself is csrc/dropout_hash.cuh, which the attention kernels and
+hash_dropout_sm90.cu both include.
 
 Operands keep the Pallas layout, [batch*heads, frames*L, dh]. No 1/sqrt(dh)
 scale, f32 scores and softmax, weights rounded to the value dtype before the
@@ -65,13 +74,14 @@ import sys
 import numpy as np
 import torch
 
+from . import dropout
 from .dropout import hash_keep
 
 _NEG_INF = -1e9
 _CSRC_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'csrc')
 _BUILD_DIR = os.path.join(_CSRC_DIR, 'build')
 # each source is one shared library; the headers are compiled into them
-_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu')
+_SOURCES = ('attention_fwd_sm90.cu', 'attention_bwd_sm90.cu', 'hash_dropout_sm90.cu')
 _TILE = 64  # frame length L and head width dh the kernels are compiled for
 _functions = None
 # weights a plain dropout twin holds at a time (f32 scores, int64 indices):
@@ -467,6 +477,9 @@ _SIGNATURES = {
     'branch_attention_dropout_fwd': [_P] * 7 + [_I] * 4 + _DROP + [_P],
     'block_causal_attention_dropout_bwd': [_P] * 10 + [_I] * 2 + _DROP + [_P],
     'branch_attention_dropout_bwd': [_P] * 14 + [_I] * 4 + _DROP + [_P],
+    # x, out, bf16, n, frames of x, inner; batch0, frame0, frames, seed
+    # words; rate, divisor
+    'hash_dropout': [_P] * 2 + [_I] * 4 + [ctypes.c_uint32] * 5 + [ctypes.c_float] * 2 + [_P],
 }
 
 
@@ -739,10 +752,47 @@ def branch_attention_dropout_bwd(q, k0, v0, kb, vb, out, dout, lse, L, seeds, ra
     return grads
 
 
+def hash_dropout_kernel(x, words, rate, batch0=0, frame0=0, frames=None):
+    """The fused hash dropout (hash_dropout_sm90.cu): inverted dropout of x
+    [B, T, ...] (bf16 or f32) with the two uint32 seed words, each element
+    hashed at its index in the global array [rows, frames, ...] that x is
+    the block [batch0 : batch0 + B, frame0 : frame0 + T] of (frames None:
+    T, x holds every frame); rate in (0, 1). Equal, bit for bit, to
+    ops/dropout.hash_dropout(words, x, rate, frame_slice_index(x.shape,
+    batch0, frame0, frames)), its plain twin (plain_placed_hash_dropout),
+    which a CPU tensor takes. The same call on an output gradient is the
+    backward."""
+    name = 'hash_dropout'  # the entry point of hash_dropout_sm90.cu
+    frames = x.shape[1] if frames is None else frames
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f'{name}: dropout rate must be in (0, 1), got {rate}')
+    s0, s1 = (int(w) & 0xFFFFFFFF for w in words)
+    if not _on_device(name, x):
+        return dropout.plain_placed_hash_dropout(x, s0, s1, rate, batch0, frame0, frames)
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f'{name}: the kernel takes bfloat16 or float32, got {x.dtype}')
+    if x.dim() < 2 or not x.is_contiguous() or x.numel() >= 1 << 31:
+        raise ValueError(f'{name}: x must be contiguous [B, T, ...] of fewer than 2^31 '
+                         f'elements, got {tuple(x.shape)} (contiguous: {x.is_contiguous()})')
+    # (1 - rate) rounded to x's dtype, as the plain twin divides
+    divisor = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    B, T = x.shape[:2]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch(name, x.data_ptr(), out.data_ptr(), int(x.dtype == torch.bfloat16), x.numel(),
+                T, x.numel() // (B * T), batch0 & 0xFFFFFFFF, frame0 & 0xFFFFFFFF,
+                frames & 0xFFFFFFFF, s0, s1, rate, divisor, stream)
+    hash_dropout_kernel.launches += 1
+    return out
+
+
 KERNELS = (block_causal_attention_fwd, branch_attention_fwd, block_causal_attention_bwd,
            branch_attention_bwd, block_causal_attention_dropout_fwd,
            block_causal_attention_dropout_bwd, branch_attention_dropout_fwd,
-           branch_attention_dropout_bwd)
+           branch_attention_dropout_bwd, hash_dropout_kernel)
 
 
 def reset_launch_counts():

@@ -7,9 +7,14 @@ in a remat recompute. The JAX package derives the words from a PRNG key
 (`_key_words`); the port takes the two words directly.
 
 `hash_dropout` is the residual, MLP and embedding dropout of MIGT
-(`dropout_impl='hash'`). The attention kernels (csrc/attention_tile.cuh)
-regenerate the same hash over their weight indices; `hash_keep` is that
-mask's plain form.
+(`dropout_impl='hash'`), which MIGT runs as the op `viewformer::hash_dropout`
+(`placed_hash_dropout`): on a CPU tensor this plain version, on a CUDA
+tensor one pass of the kernel csrc/hash_dropout_sm90.cu
+(attention_cuda.hash_dropout_kernel), whose backward is the same pass over the
+output gradient, so no mask or input is saved. The attention kernels
+(csrc/attention_tile.cuh) regenerate the same hash over their weight
+indices; `hash_keep` is that mask's plain form. Every kernel takes the hash
+from csrc/dropout_hash.cuh.
 
 uint32 arithmetic runs in int64, masked to 32 bits after every add and
 multiply (torch has no uint32 add or shift on the CPU). A product by a 32-bit
@@ -86,6 +91,45 @@ def hash_dropout(words, x, rate, index=None):
     keep = hash_uniform(words, tuple(x.shape), x.device, index) >= float(np.float32(rate))
     divisor = torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device)
     return torch.where(keep, x / divisor, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def plain_placed_hash_dropout(x: torch.Tensor, s0: int, s1: int, rate: float, batch0: int,
+                              frame0: int, frames: int) -> torch.Tensor:
+    """hash_dropout of x [B, T, ...] with the seed words (s0, s1) at the
+    indices frame_slice_index(x.shape, batch0, frame0, frames); rate in
+    (0, 1). The CPU implementation of the op viewformer::hash_dropout
+    (placed_hash_dropout), whose CUDA implementation is the kernel."""
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f'hash_dropout: dropout rate must be in (0, 1), got {rate}')
+    return hash_dropout((s0, s1), x, rate, frame_slice_index(tuple(x.shape), batch0, frame0,
+                                                             frames, x.device))
+
+
+# The op MIGT's sites run: plain_placed_hash_dropout on a CPU tensor, the
+# kernel (attention_cuda.hash_dropout_kernel) on a CUDA tensor. Its backward
+# runs the same op on the output gradient and saves no tensor, so a remat
+# recompute, which no policy saves it from, regenerates the mask.
+placed_hash_dropout = torch.library.custom_op('viewformer::hash_dropout',
+                                              plain_placed_hash_dropout, mutates_args=(),
+                                              device_types='cpu')
+
+
+@placed_hash_dropout.register_kernel('cuda')
+def _placed_hash_dropout_cuda(x, s0, s1, rate, batch0, frame0, frames):
+    from .attention_cuda import hash_dropout_kernel
+
+    return hash_dropout_kernel(x, (s0, s1), rate, batch0, frame0, frames)
+
+
+def _placed_setup(ctx, inputs, output):
+    ctx.placement = inputs[1:]
+
+
+def _placed_backward(ctx, grad):
+    return (placed_hash_dropout(grad.contiguous(), *ctx.placement),) + (None,) * 6
+
+
+placed_hash_dropout.register_autograd(_placed_backward, setup_context=_placed_setup)
 
 
 def hash_keep(words, idx, rate):

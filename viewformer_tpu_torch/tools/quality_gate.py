@@ -41,7 +41,7 @@ check the harness, not quality: its report (`ok` null) goes to
 the workdir unless --out names a file. --regate REPORT
 recomputes the verdict of a report and --combine A B merges two seeds'
 reports with their spread and the thresholds they imply; both need --out.
-The full gate takes ~70 min on one H100: start it detached and read
+The full gate takes ~45 min on one H100: start it detached and read
 the stage times from its output (each stage's own output is kept under
 <workdir>/logs).
 """
