@@ -82,10 +82,14 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      exact launches a batch; prints the session's CUDA-event times, seconds
      an evaluation batch and the peak memory;
   9. the codebook pipeline (codebook_pipeline), from images to a trained
-     transformer with the port alone: a colors image dataset at 128 px
-     written by generate_dataset_from_loader (32 train and 16 test
-     sequences of 22 frames); train_codebook(VQGANConfig(): bf16 compute,
-     f32 master weights, remat) at 352 images a step for 6 steps in 2
+     transformer with the port alone: first the JAX package's initial
+     draw without jax (jax_draw): the seed-0 draw of a small VQ-GAN
+     against the constants pinned from jax (JAX_DRAW_*), and the time of
+     VQGANConfig()'s full draw onto the card; then a colors image dataset
+     at 128 px written by generate_dataset_from_loader (32 train and 16
+     test sequences of 22 frames); train_codebook(VQGANConfig(): JAX's
+     draw of seed 42, bf16 compute, f32 master weights, remat) at 352
+     images a step for 6 steps in 2
      epochs, with LPIPS from seeded random weights (not calibrated), one
      validation batch and a save at each epoch end: finite losses and
      perplexity, the EMA counter equal to the steps, the median gap between
@@ -199,7 +203,8 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
  15. the colors quality gate of the port, --quick (quality_gate_quick):
      `python -m viewformer_tpu_torch.tools.quality_gate --quick --device
      cuda` in a temporary workdir, every stage a process of the CLI on the
-     card (dataset generate, train codebook, generate-codes, train
+     card (dataset generate, train codebook from JAX's draw of seed 42,
+     generate-codes, train
      transformer at dropout 0.1, the three evaluators, the finetune leg and
      its evaluation; the f32 evaluation on the CPU) at the kernels' shapes
      (8x8-token frames of 128 px, one head of 64, two layers): exit code 0,
@@ -312,6 +317,18 @@ PIPE_TRAIN_B, PIPE_STEPS, CB_EVAL_IMAGES = 8, 2, 64
 # columns that no differing code touches within EMA_TOL of the largest
 # (an average of bf16 latents against one of f32 latents).
 CB_CODES_EQUAL, EMA_TOL = 0.9, 5e-2
+# Phase 9, first: the JAX package's initial draw without jax
+# (utils/jax_random.py), with which train_codebook --seed S starts. A
+# VQ-GAN of JAX_DRAW_CONFIG at seed 0: the first four words of the
+# codebook's bits and of encoder.conv_in's kernel (HWIO), as jax 0.9.0 and
+# flax 0.12.3 draw them (tests/test_torch_jax_init.py pins the same
+# numbers against jax); the kernel within JAX_DRAW_ULPS f32 ULPs (erfinv).
+JAX_DRAW_CONFIG = dict(ch=32, ch_mult=(1, 2), num_res_blocks=2, attn_resolutions=(8,),
+                       z_channels=16, embed_dim=8, n_embed=64, image_size=16)
+JAX_DRAW_CODEBOOK_BITS = (0x618BE600, 0x547B252E, 0x98A2526F, 0x2C1D390D)
+JAX_DRAW_CONV_IN = (-0.10036773979663849, 0.16849425435066223, 0.3643440306186676,
+                    -0.14749866724014282)
+JAX_DRAW_ULPS = 8
 # Phase 10: a synthetic 7-Scenes scene of SEVEN_TRAIN train frames (two
 # sequences) and SEVEN_TEST test frames of SEVEN_W x SEVEN_H; evaluate
 # 7scenes (standard) and 7scenes-multictx over SEVEN_QUERIES queries in
@@ -2046,6 +2063,60 @@ def generate_codes_check(data, job, out, log, card):
     torch.cuda.empty_cache()
 
 
+def check_jax_draw():
+    """Raise unless utils/jax_random.py gives JAX's seed-0 draw of a
+    JAX_DRAW_CONFIG VQ-GAN (the pinned constants). Returns the constants it
+    read."""
+    from viewformer_tpu_torch.config import VQGANConfig
+    from viewformer_tpu_torch.models.vqgan import VQGAN
+    from viewformer_tpu_torch.utils import jax_random as jr
+    from viewformer_tpu_torch.utils.convert import jax_initial_state
+
+    config = VQGANConfig(**JAX_DRAW_CONFIG)
+    _, quantizer_rng = jr.split(jr.prng_key(0))
+    bits = jr.random_bits(jr.variable_key(quantizer_rng, (), 1),
+                          (config.embed_dim, config.n_embed)).reshape(-1)[:4]
+    bits = tuple(int(b) for b in bits)
+    check(bits == JAX_DRAW_CODEBOOK_BITS,
+          f'the codebook bits of seed 0 are {[hex(b) for b in bits]}, not JAX\'s')
+    with torch.device('meta'):
+        model = VQGAN(config, param_dtype=torch.float32)
+    state = jax_initial_state(model, 0, device='cpu')
+    limit = np.sqrt(np.float32(3.0))
+    floats = (np.array(bits, np.uint32) >> 9 | 0x3F800000).view(np.float32) - np.float32(1)
+    codebook = state['quantizer.embeddings'].reshape(-1)[:4].numpy()
+    check(np.array_equal(codebook, np.maximum(-limit, (floats.astype(np.float64) * 2 * limit
+                                                       - limit).astype(np.float32))),
+          f'the codebook of seed 0 begins {codebook}, not with JAX\'s uniform of its bits')
+    conv_in = state['encoder.conv_in.weight'][:4, 0, 0, 0].numpy()  # HWIO [0, 0, 0, :4]
+    pinned = np.array(JAX_DRAW_CONV_IN, np.float32)
+    check(np.all(np.abs(conv_in - pinned) <= JAX_DRAW_ULPS * np.spacing(np.abs(pinned))),
+          f'encoder.conv_in of seed 0 begins {conv_in.tolist()}, not {JAX_DRAW_CONV_IN}')
+    return {'codebook_bits': [hex(b) for b in bits], 'conv_in': conv_in.tolist()}
+
+
+def jax_draw(log, card):
+    """Phase 9, first: check_jax_draw, then the time of VQGANConfig()'s
+    full draw (the start of train_codebook) onto the card."""
+    from viewformer_tpu_torch.config import VQGANConfig
+    from viewformer_tpu_torch.models.vqgan import VQGAN
+    from viewformer_tpu_torch.utils.convert import jax_initial_state
+
+    pinned = check_jax_draw()
+    with torch.device('meta'):
+        model = VQGAN(VQGANConfig(), param_dtype=torch.float32)
+    t0 = time.perf_counter()
+    state = jax_initial_state(model, 1337, device='cuda')
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    values = sum(t.numel() for t in state.values())
+    check(all(t.is_cuda for t in state.values()), 'the JAX draw did not land on the card')
+    emit({'phase': 'jax_draw', 'card': card, 'pinned_seed0': pinned, 'full_values': values,
+          'full_draw_s': seconds, 'host_threads': torch.get_num_threads()}, log)
+    print(f'phase 9: the JAX draw of VQGANConfig() ({values} values) took {seconds:.2f} s '
+          f'onto the card ({card})', flush=True)
+
+
 def codebook_pipeline(ac, log, card):
     """Phase 9. Returns the launch counts of the pipeline."""
     from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
@@ -2055,6 +2126,7 @@ def codebook_pipeline(ac, log, card):
     from viewformer_tpu_torch.train import codebook as cb
     from viewformer_tpu_torch.train import transformer as ttt
 
+    jax_draw(log, card)
     config = VQGANConfig()
     check((config.ch, config.ch_mult, config.n_embed, config.image_size)
           == (128, [1, 1, 2, 2, 4], 1024, SIZE), f'VQGANConfig() is {config}')

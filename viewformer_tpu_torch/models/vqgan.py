@@ -37,7 +37,21 @@ def _conv(c_in, c_out, size, stride=1, padding=None):
 
 class GroupNorm32(nn.Module):
     """GroupNorm(32), eps 1e-6, f32 statistics and parameters whatever the
-    compute dtype."""
+    compute dtype.
+
+    In training mode on the CPU the statistics are taken over an NCHW copy:
+    torch's CPU kernel for channels_last input loses up to ~2e-4 relative in
+    f32 where a group's mean is large against its spread (over NCHW ~1e-6),
+    enough to move a latent of the first EMA update across a code boundary
+    and so change which codes live; the result goes back to channels_last.
+    A model in eval mode (AutoModel, load_model: the evaluators,
+    generate-codes, serving) keeps torch's kernel: the evaluators' data
+    axis is held byte-equal to one process, and the CPU's convolutions
+    round differently at different batch sizes, so a change of this
+    rounding moves pixels of a per-rank batch against the full batch. So
+    on the CPU the same weights give GroupNorm outputs, and from them
+    latents, codes and decoded pixels, that differ between train and eval
+    mode by that kernel's error. The card takes one path in both modes."""
 
     def __init__(self, channels):
         super().__init__()
@@ -45,7 +59,13 @@ class GroupNorm32(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        return F.group_norm(x.float(), 32, self.weight, self.bias, 1e-6).to(x.dtype)
+        h = x.float()
+        if (self.training and h.device.type == 'cpu'
+                and h.is_contiguous(memory_format=torch.channels_last)
+                and not h.is_contiguous()):
+            out = F.group_norm(h.contiguous(), 32, self.weight, self.bias, 1e-6)
+            return out.to(x.dtype).contiguous(memory_format=torch.channels_last)
+        return F.group_norm(h, 32, self.weight, self.bias, 1e-6).to(x.dtype)
 
 
 class ResnetBlock(nn.Module):

@@ -29,8 +29,9 @@ drops context flattens the context curve to about 0 gain.
 
 The report goes to QUALITY_torch_seed<seed>.json at the checkout's root:
 config, timings_s, transformer_eval, codebook_eval, multictx_eval,
-finetune, gate and ok, the card (`nvidia-smi`), transformer_eval_fp32 and
-each job's last logged train step. Exit code 0 when the gate passes.
+finetune, gate and ok, the card (`nvidia-smi`), the codebook's initial
+draw (init: 'jax', the JAX package's draw of the seed), transformer_eval_fp32
+and each job's last logged train step. Exit code 0 when the gate passes.
 
 --device (default cuda) goes to every stage that takes it; the tool raises
 before the first stage when it names CUDA and no card is present, and never
@@ -160,6 +161,8 @@ def run_gate(args):
                          'finetune_steps': args.finetune_steps, 'seed': args.seed,
                          'device': args.device},
               'card': None if args.device == 'cpu' else card_name(),
+              # train codebook --seed S starts from the JAX package's draw
+              'init': 'jax',
               'timings_s': {}}
     timings = report['timings_s']
     sfx = '' if args.seed == 42 else f'_s{args.seed}'
@@ -350,6 +353,7 @@ def combine(args):
                     'worst-seed minus noise (adjacent multictx pairs carry ~+-0.4 dB at 24 '
                     'eval sequences; the measured seed spread bounds trajectory variance)',
         'seeds': dict(zip(seeds, reports)),
+        'init': sorted({str(r.get('init')) for r in reports}),
         'spread': {'psnr_db': round(abs(psnrs[0] - psnrs[1]), 3),
                    'ctx_gain_db': round(abs(gains[0] - gains[1]), 3),
                    'loc_angle_rad': round(abs(oris[0] - oris[1]), 5)},

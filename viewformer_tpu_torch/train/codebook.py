@@ -34,6 +34,7 @@ from ..models.lpips import load_lpips
 from ..models.vqgan import VQGAN
 from ..ops.image import normalize_images
 from ..parallel import distributed
+from ..utils.convert import jax_initial_state
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager
 from .logging import MetricLogger
@@ -61,13 +62,23 @@ def create_codebook_optimizer(model, config):
 
 
 def init_codebook_state(config, generator=None, dtype=torch.bfloat16, device='cuda',
-                        remat=True, accumulate_grad_batches=1):
+                        remat=True, accumulate_grad_batches=1, jax_seed=None):
     """-> (VQGAN with f32 parameters drawn from `generator`, computing in
     `dtype`, on `device`: the card unless the caller asks for the CPU;
-    CodebookTrainState)."""
+    CodebookTrainState). jax_seed: instead of `generator`, the state that
+    the JAX package draws from jax.random.PRNGKey(jax_seed)
+    (utils/convert.jax_initial_state)."""
+    if generator is not None and jax_seed is not None:
+        raise ValueError('init_codebook_state draws from generator or from jax_seed, not both')
     device = resolve_device(device)
-    model = VQGAN(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
-                  remat=remat).to(device)
+    if jax_seed is None:
+        model = VQGAN(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
+                      remat=remat).to(device)
+    else:
+        with torch.device('meta'):
+            model = VQGAN(config, dtype=dtype, param_dtype=torch.float32, remat=remat)
+        model.to_empty(device=device)
+        model.load_state_dict(jax_initial_state(model, jax_seed, device))
     return model, CodebookTrainState(create_codebook_optimizer(model, config),
                                      accumulate_grad_batches=accumulate_grad_batches)
 
@@ -214,8 +225,11 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
     """The training loop (CLI `train codebook`). Returns (model, state).
 
     Epochs of max(1, 1 + total_steps // epochs) train steps over
-    load_image_dataset(dataset_path, split='train', uint8 frames), the
-    weights drawn from torch.Generator seed `seed`. Metrics go to
+    load_image_dataset(dataset_path, split='train', uint8 frames), from
+    the initial state that the JAX package draws from
+    jax.random.PRNGKey(seed) (utils/convert.jax_initial_state, no jax), so
+    `--seed S` starts where the JAX package's `train codebook --seed S`
+    starts; the loader shuffles with `seed` too. Metrics go to
     job_dir/metrics.jsonl (MetricLogger) once log_every steps have passed
     since the last record, and at the last step. At each epoch end, the
     eval step over at most num_val_batches batches of split 'test' in order
@@ -242,8 +256,8 @@ def train_codebook(config, dataset_path, job_dir, *, total_steps=None, epochs=10
     batch_size = batch_size or config.batch_size
     local_batch = distributed.local_batch_size(batch_size)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
-    model, state = init_codebook_state(config, torch.Generator().manual_seed(seed), dtype,
-                                       device, accumulate_grad_batches=accumulate_grad_batches)
+    model, state = init_codebook_state(config, dtype=dtype, device=device, jax_seed=seed,
+                                       accumulate_grad_batches=accumulate_grad_batches)
     lpips = load_lpips('vgg') if config.perceptual_weight > 0 else None
     if lpips is not None:
         lpips = lpips.to(device)

@@ -1,8 +1,9 @@
 """Weight bridges into the port's state_dicts. Imports no jax.
 
 state_dict_from_jax: JAX variables (nested dicts of numpy arrays; the caller
-hands over `jax.device_get(variables)`). Port names follow the JAX names. The
-conversions:
+hands over `jax.device_get(variables)`). jax_initial_state: the VQ-GAN's
+initial state as the JAX package draws it for a seed, with no jax. Port
+names follow the JAX names. The conversions:
   Conv kernel HWIO -> Conv2d weight OIHW;   Dense kernel [in, out] -> Linear weight [out, in];
   norm scale -> weight (GroupNorm under its GroupNorm_0 scope);
   Embed embedding -> weight;   h_<i> -> h.<i>;
@@ -29,6 +30,7 @@ import torch.nn as nn
 from ..config import VQGANConfig
 from ..models.migt import MIGT
 from ..models.vqgan import VQGAN, GroupNorm32
+from . import jax_random
 
 
 def _flatten(tree, prefix=()):
@@ -97,6 +99,42 @@ def state_dict_from_jax(model, variables):
         raise KeyError('JAX variables and the port model disagree: '
                        f'port entries with no JAX leaf: {missing}; '
                        f'JAX leaves not consumed: {["/".join(p) for p in flat]}')
+    return state
+
+
+def jax_initial_state(model, seed, device=None):
+    """The VQ-GAN's initial state as the JAX package draws it from
+    jax.random.PRNGKey(seed) (viewformer_tpu/train/codebook.py
+    init_codebook_state), carried as state_dict_from_jax carries JAX
+    variables: a state_dict for `model`, on `device` (default: the model's).
+
+    The root key splits into the 'params' and 'quantizer' streams. Each Conv
+    kernel is lecun_normal in JAX's HWIO layout from its scope's first
+    'params' key; biases are zeros and GroupNorm scales ones. The codebook
+    is uniform in +-sqrt(3) from the root scope's first 'quantizer' key; its
+    EMA buffers and counter are zeros. Drawn on the host with
+    utils/jax_random.py (no jax), leaf by leaf."""
+    params_rng, quantizer_rng = jax_random.split(jax_random.prng_key(seed))
+    if device is None:
+        device = next(model.parameters()).device
+    limit = np.sqrt(np.float32(3.0))
+    state = {}
+    for key, path, convert, tensor in jax_leaves(model):
+        collection, *scope, leaf = path
+        if collection == 'quantizer' and leaf == 'embeddings':
+            array = jax_random.uniform(jax_random.variable_key(quantizer_rng, (), 1),
+                                       tensor.shape, -limit, limit)
+        elif collection == 'params' and leaf == 'kernel' and tensor.ndim == 4:
+            out_ch, in_ch, kh, kw = tensor.shape
+            array = convert(jax_random.lecun_normal(
+                jax_random.variable_key(params_rng, scope, 1), (kh, kw, in_ch, out_ch)))
+        elif leaf == 'scale':
+            array = np.ones(tensor.shape, np.float32)
+        elif leaf in ('bias', 'ema_cluster_size_hidden', 'ema_dw_hidden', 'counter'):
+            array = np.zeros(tensor.shape, np.float32)
+        else:
+            raise KeyError(f'no JAX initialiser for {key} <- {"/".join(path)}')
+        state[key] = torch.tensor(array, dtype=tensor.dtype, device=device)
     return state
 
 
