@@ -44,7 +44,9 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
   5. the full-width training path (MIGTConfig(), the default recipe with
      dropout 0.1; f32 parameters, bf16 compute, per-block remat) takes a
      warm-up step and 5 timed steps at 64 sequences x 20 frames through
-     process_batch and the train step; checks the losses and the exact
+     process_batch and the train step, each drawing its dropout seeds from
+     the JAX key PRNGKey(1) as JAX's step does (the host ms of that draw
+     reported, as in phases 7 and 9); checks the losses and the exact
      launch counts of all nine kernels, and times one site of the
      non-attention dropout through the kernel and through its plain twin;
      then the same at dropout 0.0 for 2 steps;
@@ -83,9 +85,11 @@ Refuses to run without a CUDA device. Phases, each printing a JSON line:
      an evaluation batch and the peak memory;
   9. the codebook pipeline (codebook_pipeline), from images to a trained
      transformer with the port alone: first the JAX package's initial
-     draw without jax (jax_draw): the seed-0 draw of a small VQ-GAN
-     against the constants pinned from jax (JAX_DRAW_*), and the time of
-     VQGANConfig()'s full draw onto the card; then a colors image dataset
+     draw without jax (jax_draw): the seed-0 draw of a small VQ-GAN and of
+     a small MIGT with its step-0 seed words and pose multiplier against
+     the constants pinned from jax (JAX_DRAW_*), and the time of
+     VQGANConfig()'s and MIGTConfig()'s full draws onto the card; then a
+     colors image dataset
      at 128 px written by generate_dataset_from_loader (32 train and 16
      test sequences of 22 frames); train_codebook(VQGANConfig(): JAX's
      draw of seed 42, bf16 compute, f32 master weights, remat) at 352
@@ -329,6 +333,24 @@ JAX_DRAW_CODEBOOK_BITS = (0x618BE600, 0x547B252E, 0x98A2526F, 0x2C1D390D)
 JAX_DRAW_CONV_IN = (-0.10036773979663849, 0.16849425435066223, 0.3643440306186676,
                     -0.14749866724014282)
 JAX_DRAW_ULPS = 8
+# ... and of a MIGT of JAX_DRAW_MIGT_CONFIG (with the dynamic pose loss) at
+# seed 0, with which train_transformer --seed S starts: the first four
+# values of h_0's c_attn kernel ([in, out]); and what train step 0 of seed 0
+# draws from PRNGKey(1) (train/transformer.jax_step_draws): the seed
+# words of the first embedding site and of layer 0's two attention sites,
+# the pose noise of 4 rows and the multiplier JAX_DRAW_POSE_BASE ** noise
+# (glibc's powf, as XLA computes it on the CPU), bit for bit
+JAX_DRAW_MIGT_CONFIG = dict(n_embeddings=16, n_head=2, d_model=32, n_layer=2, sequence_size=4,
+                            token_image_size=2, use_dynamic_pose_loss=True)
+JAX_DRAW_MIGT_C_ATTN = (-0.024279210716485977, -0.019962942227721214, 0.009656151756644249,
+                        -0.004263890441507101)
+JAX_DRAW_MIGT_WORDS = ((0x4ECB8E7A, 0x8DA6DEF0), (0x88899B30, 0xE35ED25E),
+                       (0x777749B3, 0xC55557C6))
+JAX_DRAW_POSE_BASE = 1.5
+JAX_DRAW_POSE_NOISE = (0.048279762268066406, -0.10135912895202637, 0.24214720726013184,
+                       0.40461301803588867)
+JAX_DRAW_POSE_MULTIPLIER = (1.0197685956954956, 0.9597354531288147, 1.1031638383865356,
+                            1.1782808303833008)
 # Phase 10: a synthetic 7-Scenes scene of SEVEN_TRAIN train frames (two
 # sequences) and SEVEN_TEST test frames of SEVEN_W x SEVEN_H; evaluate
 # 7scenes (standard) and 7scenes-multictx over SEVEN_QUERIES queries in
@@ -1156,24 +1178,28 @@ def train_path(ac, config, log, card, steps):
     """Phase 5. Returns the launch counts of the timed steps."""
     from viewformer_tpu_torch.train.transformer import (init_transformer_state,
                                                         make_transformer_train_step)
+    from viewformer_tpu_torch.utils.jax_random import prng_key
 
     model, state = init_transformer_state(config, torch.Generator().manual_seed(0),
                                           torch.bfloat16, 'cuda')
     train_step = make_transformer_train_step(model, config)
     batches = [train_batch(TRAIN_B, seed, 'cuda') for seed in range(steps + 1)]
-    # each step draws its dropout seeds from a generator of its own seed
-    state, metrics = train_step(state, batches[0], torch.Generator().manual_seed(0))  # warm-up
+    # each step draws its dropout seeds as JAX's step of `train transformer
+    # --seed 0` does: from PRNGKey(1) folded with the step
+    rng = prng_key(1)
+    state, metrics = train_step(state, batches[0], rng)  # warm-up
     warm_loss = metrics['loss'].item()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     ac.reset_launch_counts()
-    step_s, losses = [], []
-    for i, batch in enumerate(batches[1:], 1):
+    step_s, losses, draw_ms = [], [], []
+    for batch in batches[1:]:
         t0 = time.perf_counter()
-        state, metrics = train_step(state, batch, torch.Generator().manual_seed(i))
+        state, metrics = train_step(state, batch, rng)
         losses.append(metrics['loss'].item())  # waits for the step
         step_s.append(time.perf_counter() - t0)
+        draw_ms.append(train_step.draw_ms)
     launches = {fn.__name__: fn.launches for fn in ac.KERNELS}
 
     # per layer and step: forward and remat recompute run the forward kernels
@@ -1195,7 +1221,7 @@ def train_path(ac, config, log, card, steps):
     median = statistics.median(step_s)
     record = {'phase': 'train', 'card': card, 'dropout': config.dropout, 'batch': TRAIN_B,
               'frames_per_sequence': S, 'tokens_per_step': TRAIN_B * S * 64, 'steps': steps,
-              'step_s': step_s, 'step_s_median': median,
+              'step_s': step_s, 'step_s_median': median, 'key_draw_ms': draw_ms,
               'tokens_per_s': TRAIN_B * S * 64 / median,
               'max_memory_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
               'warmup_loss': warm_loss, 'losses': losses, 'metrics': {
@@ -1348,7 +1374,8 @@ def instrument_loop(ac, ttt, ckpt_mod, stop_at=None):
     """Wraps the train and eval steps that train_transformer builds and the
     CheckpointManager's save and commit: each train and eval step records
     its launches of every kernel and a CUDA event behind its work (no sync:
-    the loop syncs only where it reads a metric), each save how long it
+    the loop syncs only where it reads a metric), each train step the host
+    ms of its JAX key draws (train_step.draw_ms), each save how long it
     blocked the caller and the device memory then allocated, each commit
     when it ended. With stop_at, the
     train step raises StopBeforeStep when called at that update count.
@@ -1366,7 +1393,8 @@ def instrument_loop(ac, ttt, ckpt_mod, stop_at=None):
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             record[kind].append({'end': end, 'launches': {
-                f.__name__: f.launches - before[f.__name__] for f in ac.KERNELS}})
+                f.__name__: f.launches - before[f.__name__] for f in ac.KERNELS},
+                'key_draw_ms': getattr(fn, 'draw_ms', None)})
             return out
         return run
 
@@ -1490,6 +1518,7 @@ def train_loop(ac, config, log, card):
           'resume_loss_rel_diff': resume_rel, 'resume_tol': RESUME_TOL,
           'resume_loss_rel_diff_max': max(resume_rel.values()),
           'launches_per_train_step': [r['launches'] for r in record['train']],
+          'key_draw_ms': [r['key_draw_ms'] for r in record['train']],
           'launches_per_eval_step': [r['launches'] for r in record['eval']],
           'expected_per_train_step': per_train, 'expected_per_eval_step': per_eval,
           'launches': launches}, log)
@@ -2065,10 +2094,13 @@ def generate_codes_check(data, job, out, log, card):
 
 def check_jax_draw():
     """Raise unless utils/jax_random.py gives JAX's seed-0 draw of a
-    JAX_DRAW_CONFIG VQ-GAN (the pinned constants). Returns the constants it
-    read."""
-    from viewformer_tpu_torch.config import VQGANConfig
+    JAX_DRAW_CONFIG VQ-GAN and a JAX_DRAW_MIGT_CONFIG MIGT, and JAX's draws
+    of that MIGT's train step 0 (the pinned constants). Returns the
+    constants it read."""
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
+    from viewformer_tpu_torch.models.migt import MIGT
     from viewformer_tpu_torch.models.vqgan import VQGAN
+    from viewformer_tpu_torch.train.transformer import jax_step_draws
     from viewformer_tpu_torch.utils import jax_random as jr
     from viewformer_tpu_torch.utils.convert import jax_initial_state
 
@@ -2092,29 +2124,58 @@ def check_jax_draw():
     pinned = np.array(JAX_DRAW_CONV_IN, np.float32)
     check(np.all(np.abs(conv_in - pinned) <= JAX_DRAW_ULPS * np.spacing(np.abs(pinned))),
           f'encoder.conv_in of seed 0 begins {conv_in.tolist()}, not {JAX_DRAW_CONV_IN}')
-    return {'codebook_bits': [hex(b) for b in bits], 'conv_in': conv_in.tolist()}
+
+    config = MIGTConfig(**JAX_DRAW_MIGT_CONFIG, dropout=0.1,
+                        random_pose_multiplier=JAX_DRAW_POSE_BASE)
+    with torch.device('meta'):
+        migt = MIGT(config, param_dtype=torch.float32)
+    c_attn = jax_initial_state(migt, 0, device='cpu')['h.0.attn.c_attn.weight'][:4, 0].numpy()
+    pinned = np.array(JAX_DRAW_MIGT_C_ATTN, np.float32)
+    check(np.all(np.abs(c_attn - pinned) <= JAX_DRAW_ULPS * np.spacing(np.abs(pinned))),
+          f'h_0 c_attn of seed 0 begins {c_attn.tolist()}, not {JAX_DRAW_MIGT_C_ATTN}')
+    seeds, noise = jax_step_draws(migt, jr.prng_key(1), 0, len(JAX_DRAW_POSE_NOISE))
+    n = 2 + migt.use_localization
+    words = tuple(tuple(seeds[i]) for i in (0, n, n + 1))
+    check(words == JAX_DRAW_MIGT_WORDS,
+          f'step 0 of seed 0 draws seed words {words}, not JAX\'s {JAX_DRAW_MIGT_WORDS}')
+    check(tuple(float(v) for v in noise) == JAX_DRAW_POSE_NOISE,
+          f'step 0 of seed 0 draws pose noise {noise.tolist()}, not JAX\'s')
+    multiplier = jr.power(JAX_DRAW_POSE_BASE, noise)
+    check(tuple(float(v) for v in multiplier) == JAX_DRAW_POSE_MULTIPLIER,
+          f'{JAX_DRAW_POSE_BASE} ** noise is {multiplier.tolist()} here, not XLA\'s '
+          f'{JAX_DRAW_POSE_MULTIPLIER}')
+    return {'codebook_bits': [hex(b) for b in bits], 'conv_in': conv_in.tolist(),
+            'migt_c_attn': c_attn.tolist(), 'migt_words': [list(w) for w in words],
+            'pose_noise': noise.tolist(), 'pose_multiplier': multiplier.tolist()}
 
 
 def jax_draw(log, card):
-    """Phase 9, first: check_jax_draw, then the time of VQGANConfig()'s
-    full draw (the start of train_codebook) onto the card."""
-    from viewformer_tpu_torch.config import VQGANConfig
+    """Phase 9, first: check_jax_draw, then the time of VQGANConfig()'s and
+    MIGTConfig()'s full draws (the starts of train_codebook and
+    train_transformer) onto the card."""
+    from viewformer_tpu_torch.config import MIGTConfig, VQGANConfig
+    from viewformer_tpu_torch.models.migt import MIGT
     from viewformer_tpu_torch.models.vqgan import VQGAN
     from viewformer_tpu_torch.utils.convert import jax_initial_state
 
     pinned = check_jax_draw()
-    with torch.device('meta'):
-        model = VQGAN(VQGANConfig(), param_dtype=torch.float32)
-    t0 = time.perf_counter()
-    state = jax_initial_state(model, 1337, device='cuda')
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    values = sum(t.numel() for t in state.values())
-    check(all(t.is_cuda for t in state.values()), 'the JAX draw did not land on the card')
-    emit({'phase': 'jax_draw', 'card': card, 'pinned_seed0': pinned, 'full_values': values,
-          'full_draw_s': seconds, 'host_threads': torch.get_num_threads()}, log)
-    print(f'phase 9: the JAX draw of VQGANConfig() ({values} values) took {seconds:.2f} s '
-          f'onto the card ({card})', flush=True)
+    timed = {}
+    for name, cls, config in (('VQGANConfig()', VQGAN, VQGANConfig()),
+                              ('MIGTConfig()', MIGT, MIGTConfig())):
+        with torch.device('meta'):
+            model = cls(config, param_dtype=torch.float32)
+        t0 = time.perf_counter()
+        state = jax_initial_state(model, 1337, device='cuda')
+        torch.cuda.synchronize()
+        timed[name] = {'values': sum(t.numel() for t in state.values()),
+                       'draw_s': time.perf_counter() - t0}
+        check(all(t.is_cuda for t in state.values()), 'the JAX draw did not land on the card')
+        del state
+    emit({'phase': 'jax_draw', 'card': card, 'pinned_seed0': pinned, 'full_draws': timed,
+          'host_threads': torch.get_num_threads()}, log)
+    print('phase 9: the JAX draws took ' + ', '.join(
+        f'{name} ({t["values"]} values) {t["draw_s"]:.2f} s' for name, t in timed.items())
+        + f' onto the card ({card})', flush=True)
 
 
 def codebook_pipeline(ac, log, card):
@@ -2235,6 +2296,7 @@ def codebook_pipeline(ac, log, card):
           'train_records': records, 'val_records': vals,
           'transformer_records': {f'{s} {k}': v for (s, k), v in tmetrics.items()},
           'transformer_launches_per_train_step': [r['launches'] for r in record['train']],
+          'transformer_key_draw_ms': [r['key_draw_ms'] for r in record['train']],
           'transformer_launches_per_eval_step': [r['launches'] for r in record['eval']],
           'expected_per_train_step': per_train, 'expected_per_eval_step': per_eval,
           'evaluate_codebook': result, 'evaluate_codebook_launches': eval_launches,

@@ -1,7 +1,7 @@
 """The early-collapse rate of the codebook stage over seeds, on one card.
 
     python tests/codebook_sweep.py [--seeds 0-15] [--budget-s SECONDS]
-        [--out codebook_sweep.json]
+        [--draws jax,torch] [--variant bf16] [--out codebook_sweep.json]
 
 Writes the colors quality gate's dataset (200 sequences x 20 frames at
 128 px) once, then runs `train codebook` through the port's CLI, in this
@@ -20,7 +20,10 @@ step's own batch): below COLLAPSED it counts as collapsed (the gate's
 collapsed seed read 3.66 there, a healthy one 13.5). Each run also keeps
 its logged perplexities, the validation PSNR at its end and its seconds.
 No new run starts once --budget-s seconds have passed. The JSON report is
-rewritten after every run. Not a test: each run is 200 full-width steps on the card.
+rewritten after every run. --variant runs every seed with one of
+tests/codebook_precision.py's variants of the VQ-GAN's compute (default
+bf16: the CLI as it is). Not a test: each run is 200 full-width steps on
+the card.
 """
 import argparse
 import json
@@ -33,8 +36,10 @@ from unittest import mock
 
 import torch
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path[:0] = [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                os.path.dirname(os.path.abspath(__file__))]
 
+from codebook_precision import VARIANTS, variant, write_gate_dataset  # noqa: E402
 from viewformer_tpu_torch import cli  # noqa: E402
 from viewformer_tpu_torch.train import codebook  # noqa: E402
 
@@ -98,28 +103,29 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--seeds', default='0-15')
     ap.add_argument('--budget-s', type=float, default=None)
+    ap.add_argument('--draws', default=','.join(DRAWS))
+    ap.add_argument('--variant', default='bf16', choices=VARIANTS)
     ap.add_argument('--out', default='codebook_sweep.json')
     args = ap.parse_args()
 
     t0 = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix='codebook_sweep_')
     dataset = os.path.join(workdir, 'img')
-    cli.main(['dataset', 'generate', '--loader', 'colors', '--loader-num-sequences',
-              str(SEQUENCES), '--loader-sequence-size', '20', '--loader-image-size',
-              str(IMAGE_SIZE), '--output', os.path.join(dataset, 'colors'),
-              '--max-sequences-per-shard', '32', '--split', 'train', '--split', 'test'])
+    write_gate_dataset(dataset)
     report = {'config': {'total_steps': TOTAL_STEPS, 'read_step': READ_STEP,
                          'collapsed_below': COLLAPSED, 'flags': GATE_CODEBOOK_FLAGS,
-                         'image_size': IMAGE_SIZE, 'dataset_sequences': SEQUENCES},
+                         'image_size': IMAGE_SIZE, 'dataset_sequences': SEQUENCES,
+                         'variant': args.variant},
               'dataset_s': time.perf_counter() - t0, 'runs': []}
-    for draw in DRAWS:
+    for draw in args.draws.split(','):
         for seed in parse_seeds(args.seeds):
             if args.budget_s is not None and time.perf_counter() - t0 > args.budget_s:
                 report['cut'] = f'budget of {args.budget_s} s spent before {draw} seed {seed}'
                 break
             job_dir = os.path.join(workdir, f'codebook_{draw}_{seed}')
             start = time.perf_counter()
-            train_one(dataset, job_dir, seed, draw)
+            with variant(args.variant):
+                train_one(dataset, job_dir, seed, draw)
             run = {'seed': seed, 'draw': draw, 'seconds': time.perf_counter() - start,
                    **read_run(job_dir)}
             shutil.rmtree(job_dir, ignore_errors=True)

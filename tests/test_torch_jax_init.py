@@ -3,11 +3,13 @@
 against jax and flax themselves on the CPU: keys and 32-bit words bit for
 bit; uniform draws bit for bit; truncated normal and lecun_normal draws
 within ERFINV_ULPS f32 ULPs of each value (the port takes erfinv in f64 and
-rounds it once, XLA approximates it in f32); the
-VQ-GAN's whole initial state against the JAX package's
-init_codebook_state; and, at VQGANConfig()'s full width from JAX's seed
+rounds it once, XLA approximates it in f32); the VQ-GAN's and the MIGT's
+whole initial states against the JAX package's init_codebook_state and
+init_transformer_state; and, at VQGANConfig()'s full width from JAX's seed
 1337, the first training encode with its EMA update, the step at which
 the codebook's live codes are decided."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,13 +21,17 @@ from flax.core import scope as flax_scope
 from flax.linen import initializers
 
 from test_torch_config import to_port
+from test_train_transformer import TINY as TINY_MIGT_BASE
 from viewformer_tpu.config import VQGANConfig
 from viewformer_tpu.models.vqgan import VQGAN as JaxVQGAN
 from viewformer_tpu.train import codebook as jcb
+from viewformer_tpu.train import transformer as jtt
 from viewformer_tpu_torch.data.loaders.colors import ColorsLoader
+from viewformer_tpu_torch.models.migt import MIGT
 from viewformer_tpu_torch.models.vqgan import VQGAN, GroupNorm32
 from viewformer_tpu_torch.ops.image import normalize_images
 from viewformer_tpu_torch.train import codebook as tcb
+from viewformer_tpu_torch.train import transformer as ttt
 from viewformer_tpu_torch.utils import jax_random as jr
 from viewformer_tpu_torch.utils.convert import jax_initial_state, jax_leaves, state_dict_from_jax
 
@@ -42,6 +48,9 @@ TINY = VQGANConfig(ch=32, ch_mult=(1, 2), num_res_blocks=2, attn_resolutions=(8,
 SEED0_CODEBOOK_BITS = (0x618BE600, 0x547B252E, 0x98A2526F, 0x2C1D390D)
 SEED0_CONV_IN = (-0.10036773979663849, 0.16849425435066223, 0.3643440306186676,
                  -0.14749866724014282)
+# every leaf of the MIGT: localization on (the pose criterion), the dynamic
+# pose loss on (pos_ori_weights)
+TINY_MIGT = dataclasses.replace(TINY_MIGT_BASE, use_dynamic_pose_loss=True)
 # the first training encode at full width: codes may flip only at
 # Voronoi boundaries, where f32 convolutions of XLA and oneDNN round apart
 CODE_AGREEMENT = 0.99
@@ -185,6 +194,77 @@ def test_pinned_seed0_draw(jax_tiny_states):
         assert np.array_equal(getattr(TINY, name), value), name
     drawn = chip_smoke.check_jax_draw()
     assert drawn['codebook_bits'] == [hex(b) for b in SEED0_CODEBOOK_BITS]
+
+
+@pytest.fixture(scope='module')
+def jax_migt_states():
+    """The JAX package's init_transformer_state of TINY_MIGT (remat, as its
+    train_transformer builds it) at seeds 0, 42 and 1337 under one jit,
+    carried into the port's names."""
+    with torch.device('meta'):
+        model = MIGT(to_port(TINY_MIGT), param_dtype=torch.float32)
+    init = jax.jit(lambda rng: jtt.init_transformer_state(TINY_MIGT, rng, optax.adam(1e-3))[1])
+    states, raw = {}, {}
+    for seed in (0, 42, 1337):
+        variables = {'params': jax.device_get(init(jax.random.PRNGKey(seed)).params)}
+        states[seed] = state_dict_from_jax(model, variables)
+        raw[seed] = variables
+    return model, states, raw
+
+
+@pytest.mark.parametrize('seed', [0, 42, 1337])
+def test_migt_initial_state_is_jax(seed, jax_migt_states):
+    """Every tensor of the MIGT's jax_initial_state against JAX's draw: Dense
+    kernels, wte and wpe within ERFINV_ULPS, zeros, ones and pos_ori_weights
+    exact; init_transformer_state(jax_seed=) lands it in the model, and
+    refuses a generator beside it."""
+    model, states, _ = jax_migt_states
+    expected = states[seed]
+    port = jax_initial_state(model, seed, device='cpu')
+    assert sorted(port) == sorted(expected)
+    drawn = 0
+    for key, value in expected.items():
+        assert port[key].shape == value.shape and port[key].dtype == value.dtype, key
+        if key.endswith('.weight') and value.ndim == 2 or key == 'wpe':
+            _assert_within_ulps(port[key].numpy(), value.numpy(), key)
+            drawn += 1
+        else:
+            assert torch.equal(port[key], value), key
+    linears = sum(1 for m in model.modules() if isinstance(m, torch.nn.Linear))
+    assert drawn == linears + 2  # and wte, wpe
+    assert torch.equal(port['pos_ori_weights'], torch.tensor([0.0, -3.0]))
+    built, _ = ttt.init_transformer_state(to_port(TINY_MIGT), dtype=torch.float32,
+                                          device='cpu', jax_seed=seed)
+    for key, value in built.state_dict().items():
+        assert torch.equal(value, port[key]), key
+    with pytest.raises(ValueError, match='not both'):
+        ttt.init_transformer_state(to_port(TINY_MIGT), generator=torch.Generator(),
+                                   device='cpu', jax_seed=seed)
+
+
+def test_pinned_migt_seed0_draw(jax_migt_states):
+    """The MIGT constants chip_smoke.py asserts on the card's machine are
+    jax's: seed 0's first c_attn kernel values, and what JAX's train step 0
+    of `train transformer --seed 0` draws from PRNGKey(1): the first dropout
+    sites' seed words and the pose noise."""
+    _, _, raw = jax_migt_states
+    c_attn = np.asarray(raw[0]['params']['h_0']['attn']['c_attn']['kernel']).reshape(-1)[:4]
+    assert tuple(float(v) for v in c_attn) == chip_smoke.JAX_DRAW_MIGT_C_ATTN
+    dropout_rng, pose_rng = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(1), 0))
+    embedding = flax_scope.LazyRng.create(dropout_rng, 1).as_jax_rng()
+    attention = jax.random.split(
+        flax_scope.LazyRng.create(dropout_rng, 'h_0', 'attn', 1).as_jax_rng())
+    words = [tuple(int(w) for w in _key_data(k)) for k in (embedding, *attention)]
+    assert tuple(words) == chip_smoke.JAX_DRAW_MIGT_WORDS
+    u = jax.random.uniform(flax_scope.LazyRng.create(pose_rng, 1).as_jax_rng(),
+                           (len(chip_smoke.JAX_DRAW_POSE_NOISE),), jnp.float32, -1.0, 1.0)
+    assert tuple(float(v) for v in u) == chip_smoke.JAX_DRAW_POSE_NOISE
+    multiplier = jnp.float32(chip_smoke.JAX_DRAW_POSE_BASE) ** u
+    assert tuple(float(v) for v in multiplier) == chip_smoke.JAX_DRAW_POSE_MULTIPLIER
+    for name, value in chip_smoke.JAX_DRAW_MIGT_CONFIG.items():
+        assert getattr(TINY_MIGT, name) == value, name
+    drawn = chip_smoke.check_jax_draw()
+    assert drawn['migt_words'] == [list(w) for w in words]
 
 
 def test_group_norm_channels_last_cpu_precision():

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from flax.core import scope as flax_scope
+
 from test_torch_config import to_port
 from test_torch_dropout import pallas_interpret
 from test_train_transformer import TINY
@@ -24,6 +26,7 @@ from viewformer_tpu.train import transformer as jtt
 from viewformer_tpu.utils.schedules import Schedule
 from viewformer_tpu_torch.models.migt import MIGT as TorchMIGT
 from viewformer_tpu_torch.train import transformer as ttt
+from viewformer_tpu_torch.utils import jax_random
 from viewformer_tpu_torch.utils.convert import state_dict_from_jax
 
 VARIANTS = {
@@ -34,6 +37,14 @@ VARIANTS = {
     'scheduled': dataclasses.replace(TINY, localization_weight=Schedule.from_str(
         'linear(0,2,100)'), n_loss_skip=0, image_generation_weight=0.5),
 }
+
+
+@pytest.fixture(autouse=True, scope='module')
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _batch(seed, B=2, T=4):
@@ -214,12 +225,19 @@ def test_train_step_refuses_dropout():
 DROPOUT_SEED = 11  # the port's generator seed, each step
 
 
+def _fused_interpret(monkeypatch):
+    """MIGT's attention in the JAX package takes the fused path with its
+    Pallas kernels in interpret mode (the hash-dropout kernels B5-B8)."""
+    pallas_interpret(monkeypatch)
+    monkeypatch.setattr(jmigt, 'multi_end_block_attention',
+                        functools.partial(jba.multi_end_block_attention, use_fused=True))
+
+
 def _route_jax_dropout(monkeypatch, words):
     """Make the JAX package draw the port's dropout seeds: _key_words returns
     the next pair of `words` in call order (a traced forward draws its sites
-    in that order), and MIGT's attention takes the fused path with its
-    Pallas kernels in interpret mode (the hash-dropout kernels B5-B8).
-    Returns the list of calls, for counting the sites a trace drew."""
+    in that order), and its attention takes the fused path in interpret
+    mode. Returns the list of calls, for counting the sites a trace drew."""
     calls = []
 
     def key_words(key):
@@ -228,9 +246,7 @@ def _route_jax_dropout(monkeypatch, words):
         return jnp.uint32(pair[0]), jnp.uint32(pair[1])
 
     monkeypatch.setattr(jdropout, '_key_words', key_words)
-    pallas_interpret(monkeypatch)
-    monkeypatch.setattr(jmigt, 'multi_end_block_attention',
-                        functools.partial(jba.multi_end_block_attention, use_fused=True))
+    _fused_interpret(monkeypatch)
     return calls
 
 
@@ -285,6 +301,82 @@ def test_dropout_train_steps_match_jax(jax_dropout_training, n_steps):
         for key in metrics:
             _close(metrics[key], expected[key])
     updated = state_dict_from_jax(model, {'params': jax_params[n_steps - 1]})
+    d = config.d_model
+    for name, value in model.state_dict().items():
+        value, expected = value.numpy(), updated[name].numpy()
+        if name.endswith('attn.c_attn.bias'):  # as in test_train_steps_match_jax
+            np.testing.assert_allclose(value[2 * d:], expected[2 * d:], atol=5e-5, err_msg=name)
+            value, expected = value[:2 * d], expected[:2 * d]
+        np.testing.assert_allclose(value, expected, atol=1e-5, err_msg=name)
+
+
+# `train transformer --seed JAX_KEYS_SEED`: dropout on, the pose multiplier on
+JAX_KEYS_SEED = 1337
+JAX_KEYS_CONFIG = dataclasses.replace(TINY, dropout=0.1, random_pose_multiplier=1.5)
+
+
+def _jax_site_words(config, dropout_rng):
+    """The key data of every dropout site's key that the JAX package's
+    training forward makes from the step's 'dropout' key, in its draw
+    order, computed by flax and jax: the root's make_rng a stream's
+    embedding dropout, then a layer's attention key split in two by
+    multi_end_block_attention, one key a stream's attention output and one
+    a stream's MLP output."""
+    n = 2 + (not config.localization_weight.is_zero())
+
+    def key(*path):
+        return flax_scope.LazyRng.create(dropout_rng, *path).as_jax_rng()
+    keys = [key(c) for c in range(1, n + 1)]
+    for i in range(config.n_layer):
+        keys += list(jax.random.split(key(f'h_{i}', 'attn', 1)))
+        keys += [key(f'h_{i}', 'attn', c) for c in range(2, n + 2)]
+        keys += [key(f'h_{i}', 'mlp', c) for c in range(1, n + 1)]
+    return [[int(w) for w in np.asarray(k)] for k in keys]
+
+
+def test_train_steps_from_jax_keys_match_jax(monkeypatch):
+    """`train transformer --seed S` in both packages, without touching the
+    JAX package's key derivation: the port starts from init_transformer_state
+    (jax_seed=S) and each step draws from PRNGKey(S + 1) (jax_step_draws);
+    JAX's train step runs dropout_impl='hash' with remat on the fused path
+    (Pallas in interpret mode) from its own init of PRNGKey(S). Each of 3
+    steps: the port's seed words equal the key data of JAX's site keys in
+    draw order, its pose noise equals JAX's uniform draw and
+    random_pose_multiplier ** noise XLA's pow, bit for bit; the metrics and
+    then the parameters within this file's bounds."""
+    config = JAX_KEYS_CONFIG
+    _fused_interpret(monkeypatch)
+    optimizer, _ = jtt.create_transformer_optimizer(config, warmup_steps=2)
+    jmodel, jstate = jtt.init_transformer_state(config, jax.random.PRNGKey(JAX_KEYS_SEED),
+                                                optimizer, dropout_impl='hash')
+    jstep = jtt.make_transformer_train_step(jmodel, config, optimizer, donate=False)
+    model, state = ttt.init_transformer_state(to_port(config), dtype=torch.float32, device='cpu',
+                                              warmup_steps=2, jax_seed=JAX_KEYS_SEED)
+    step = ttt.make_transformer_train_step(model, to_port(config))
+    poses, tokens = _batch(1, B=4)
+    rng = jax.random.PRNGKey(JAX_KEYS_SEED + 1)
+    port_rng = jax_random.prng_key(JAX_KEYS_SEED + 1)
+    for n in range(3):
+        dropout_rng, pose_rng = jax.random.split(jax.random.fold_in(rng, n))
+        seeds, noise = ttt.jax_step_draws(model, port_rng, n, 4)
+        assert seeds == _jax_site_words(config, dropout_rng)
+        assert len(seeds) == model.dropout_sites(3)
+        u = jax.random.uniform(flax_scope.LazyRng.create(pose_rng, 1).as_jax_rng(), (4,),
+                               jnp.float32, -1.0, 1.0)
+        np.testing.assert_array_equal(noise.view(np.uint32), np.asarray(u).view(np.uint32))
+        multiplier = np.asarray(jnp.float32(config.random_pose_multiplier) ** u)
+        np.testing.assert_array_equal(
+            jax_random.power(config.random_pose_multiplier, noise).view(np.uint32),
+            multiplier.view(np.uint32))
+        jstate, expected = jstep(jstate, (jnp.asarray(poses), jnp.asarray(tokens)), rng)
+        state, metrics = step(state, (torch.from_numpy(poses), torch.from_numpy(tokens)),
+                              port_rng)
+        assert step.draw_ms is not None
+        expected = jax.device_get(expected)
+        assert set(metrics) == set(expected)
+        for key in metrics:
+            _close(metrics[key], expected[key])
+    updated = state_dict_from_jax(model, {'params': jax.device_get(jstate.params)})
     d = config.d_model
     for name, value in model.state_dict().items():
         value, expected = value.numpy(), updated[name].numpy()

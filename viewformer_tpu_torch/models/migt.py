@@ -79,7 +79,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..ops.branching_attention import multi_end_block_attention
 from ..ops.dropout import fold_rank, placed_hash_dropout
 from ..parallel.mesh import copy_to_model, current_mesh, gather_frames, reduce_from_model
-from ..utils import geometry
+from ..utils import geometry, jax_random
 from .initializers import truncated_normal_
 
 LAYER_NORM_EPS = 1e-5
@@ -368,14 +368,16 @@ class MIGT(nn.Module):
 
     def forward(self, poses, input_ids, localization_tokens=None, output_poses=None, *,
                 compute_losses=False, deterministic=True, step=0, generator=None,
-                dropout_seeds=None):
+                dropout_seeds=None, pose_noise=None):
         """poses [B, T_p, 7]; input_ids [B, T, h, w] int; optional
         localization_tokens [B, T, h, w] and output_poses [B, T, 7].
 
         Returns a dict: logits [B, T, h, w, n_embeddings] (f32), loss and its
         terms (with compute_losses), pose_prediction [B, T, L, 7] (with
-        localization on), hidden_states. Training (deterministic=False) draws
-        the random pose multiplier from `generator`; `step` drives the
+        localization on), hidden_states. Training (deterministic=False)
+        scales the poses by random_pose_multiplier ** u (f32, as XLA's pow
+        on the CPU), u in [-1, 1) one a row of the global batch: the given
+        pose_noise, else drawn from `generator`; `step` drives the
         localization-weight schedule. With config.dropout > 0, training
         reads dropout_seeds: dropout_sites(n streams) pairs of uint32 words in
         site order (module docstring). Under data parallel (a
@@ -392,8 +394,11 @@ class MIGT(nn.Module):
         data, n_data = mesh.index('data'), mesh.size('data')
         # train-time random pose-scale augmentation, drawn for the global batch
         if not deterministic and cfg.random_pose_multiplier != 1.0:
-            u = torch.rand(B * n_data, generator=generator)[data * B:(data + 1) * B] * 2 - 1
-            random_pose_multiplier = (cfg.random_pose_multiplier ** u).to(device)
+            if pose_noise is None:
+                pose_noise = torch.rand(B * n_data, generator=generator) * 2 - 1
+            u = torch.as_tensor(pose_noise)[data * B:(data + 1) * B]
+            random_pose_multiplier = torch.from_numpy(
+                jax_random.power(cfg.random_pose_multiplier, u.numpy())).to(device)
         else:
             random_pose_multiplier = torch.ones(B, device=device)
 

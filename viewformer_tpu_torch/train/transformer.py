@@ -26,9 +26,14 @@ On the card the attention runs kernels B1/B2 forward and B3/B4 backward
 (ops/branching_attention.py); with config.dropout > 0 (the default recipe,
 0.1) kernels B5/B7 and B6/B8, which drop attention weights in the kernel.
 Dropout is the JAX package's dropout_impl='hash': each step draws every
-dropout site's seed words from the step's torch.Generator before the forward
-(the counterpart of JAX's fold_in(rng, step)) and passes them in, so the
-remat recompute regenerates the same masks.
+dropout site's seed words before the forward and passes them in, so the
+remat recompute regenerates the same masks. The step draws them, and the
+random pose multiplier, from its rng: a JAX key gives JAX's numbers
+(jax_step_draws: the keys of fold_in(rng, step), as the JAX package's train
+step draws them), a torch.Generator torch's (draw_dropout_seeds).
+train_transformer(seed=S) starts from the JAX package's initial draw of
+PRNGKey(S) and steps from the key PRNGKey(S + 1), as JAX's
+train_transformer does.
 
 The update count lives in the train state and drives both the learning rate
 and the localization-weight schedule. As in optax, the learning rate of an
@@ -39,6 +44,7 @@ import dataclasses
 import functools
 import math
 import os
+import time
 from typing import Callable
 
 import numpy as np
@@ -53,7 +59,8 @@ from ..parallel import distributed
 from ..parallel import mesh as mesh_lib
 from ..parallel.sharding import (shard_transformer_state, sharded_parameters,
                                  unshard_train_state)
-from ..utils import geometry
+from ..utils import geometry, jax_random
+from ..utils.convert import jax_initial_state
 from ..utils.device import resolve_device
 from .checkpoint import CheckpointManager, restore_checkpoint
 from .logging import MetricLogger
@@ -198,18 +205,29 @@ class TransformerTrainState:
 
 def init_transformer_state(config, generator=None, dtype=torch.bfloat16, device='cuda',
                            remat=True, total_steps=None, warmup_steps=2000,
-                           dropout_impl='hash', remat_policy=None):
+                           dropout_impl='hash', remat_policy=None, jax_seed=None):
     """-> (model, TransformerTrainState): MIGT with f32 parameters drawn from
     `generator`, computing in `dtype`, on `device` (the card unless the
     caller asks for the CPU); remat recomputes each block in the backward,
     keeping what the named remat_policy keeps (resolve_remat_policy).
-    dropout_impl: 'hash' only; 'rng' raises. The state is in the
-    one-process layout; parallel/sharding.shard_transformer_state
-    places it on a mesh's `model` axis."""
+    dropout_impl: 'hash' only; 'rng' raises. jax_seed: instead of
+    `generator`, the parameters that the JAX package draws from
+    jax.random.PRNGKey(jax_seed) (utils/convert.jax_initial_state). The
+    state is in the one-process layout; parallel/sharding.
+    shard_transformer_state places it on a mesh's `model` axis."""
+    if generator is not None and jax_seed is not None:
+        raise ValueError('init_transformer_state draws from generator or from jax_seed, '
+                         'not both')
     device = resolve_device(device)
-    model = MIGT(config, dtype=dtype, generator=generator, param_dtype=torch.float32,
-                 remat=remat, dropout_impl=dropout_impl,
-                 remat_policy=resolve_remat_policy(remat_policy)).to(device)
+    kwargs = dict(dtype=dtype, param_dtype=torch.float32, remat=remat,
+                  dropout_impl=dropout_impl, remat_policy=resolve_remat_policy(remat_policy))
+    if jax_seed is None:
+        model = MIGT(config, generator=generator, **kwargs).to(device)
+    else:
+        with torch.device('meta'):
+            model = MIGT(config, **kwargs)
+        model.to_empty(device=device)
+        model.load_state_dict(jax_initial_state(model, jax_seed, device))
     optimizer, lr_schedule = create_transformer_optimizer(model, config, total_steps,
                                                           warmup_steps)
     return model, TransformerTrainState(optimizer, lr_schedule)
@@ -241,26 +259,83 @@ def draw_dropout_seeds(model, generator=None):
     return words.tolist()
 
 
+@functools.lru_cache(maxsize=16)
+def _dropout_site_words(n_layer, n_streams):
+    """The words folded into the step's 'dropout' key for each key that a
+    training forward of the JAX package's MIGT makes, in the order of
+    MIGT.dropout_sites, and where in that list each layer's attention key
+    is. flax's scopes and counters: the root draws one key a stream's
+    embedding dropout; layer i's attention first the key it splits into
+    the two attention seeds (stream 0's, the side streams'), then one a
+    stream's output dropout; its MLP one a stream's."""
+    words, attention = [jax_random.scope_word((), c) for c in range(1, n_streams + 1)], []
+    for i in range(n_layer):
+        attn, mlp = (f'h_{i}', 'attn'), (f'h_{i}', 'mlp')
+        attention.append(len(words))
+        words += [jax_random.scope_word(attn, c) for c in range(1, n_streams + 2)]
+        words += [jax_random.scope_word(mlp, c) for c in range(1, n_streams + 1)]
+    return np.array(words, np.uint32), np.array(attention)
+
+
+def jax_step_draws(model, rng, step, rows):
+    """What the JAX package's train step `step` (the count of updates before
+    it) draws from its key `rng` (uint32 [2], utils/jax_random.prng_key),
+    computed without jax: (seeds, pose_noise).
+
+    JAX splits fold_in(rng, step) into the 'dropout' and 'pose_noise'
+    streams. seeds: with config.dropout > 0, the key data of every dropout
+    site's key (flax's make_rng in the site's scope; each attention's key
+    split in two, as multi_end_block_attention splits it), in site order
+    (MIGT.dropout_sites, localization on or off), else None. pose_noise:
+    with config.random_pose_multiplier != 1, JAX's uniform draw in [-1, 1)
+    for the `rows` rows of the global batch (f32 [rows]), else None. Keys
+    are vectorised over the sites: a pass of threefry a level of keys."""
+    config = model.config
+    dropout_rng, pose_rng = jax_random.split(jax_random.fold_in(rng, step))
+    seeds = pose_noise = None
+    if config.dropout > 0:
+        words, attention = _dropout_site_words(config.n_layer, 2 + model.use_localization)
+        keys = jax_random.fold_in(dropout_rng, words)                    # [sites - n_layer, 2]
+        halves = jax_random.split(keys[attention])                       # [n_layer, 2, 2]
+        keys = np.insert(keys, attention + 1, halves[:, 1], axis=0)
+        keys[attention + np.arange(len(attention))] = halves[:, 0]
+        seeds = keys.tolist()
+    if config.random_pose_multiplier != 1.0:
+        pose_noise = jax_random.uniform(jax_random.variable_key(pose_rng, (), 1), (rows,),
+                                        -1.0, 1.0)
+    return seeds, pose_noise
+
+
 def make_transformer_train_step(model, config):
-    """-> train_step(state, batch, generator=None) -> (state, metrics).
+    """-> train_step(state, batch, rng=None) -> (state, metrics).
     batch = (poses [B, S, 7], tokens [B, S, h, w]) on the model's device:
-    this rank's rows of the global batch under data parallel;
-    generator (a CPU torch.Generator) draws the step's dropout seeds
-    (draw_dropout_seeds, when config.dropout > 0), then the random pose
-    multiplier. One AdamW update of the model's parameters in place, from
-    the gradients averaged over the rank's (data, seq) group of the current
-    mesh; state.step advances by one. Metrics are 0-d tensors on the
-    device, averaged over the data axis (reading them waits for the
-    step)."""
-    def train_step(state, batch, generator=None):
+    this rank's rows of the global batch under data parallel. rng draws
+    the step's dropout seeds (when config.dropout > 0) and the random pose
+    multiplier: a JAX key (uint32 [2]) as the JAX package's train step
+    draws them (jax_step_draws, the step's host time in
+    train_step.draw_ms), or a CPU torch.Generator (draw_dropout_seeds,
+    then the multiplier; None: torch's default generator). One AdamW
+    update of the model's parameters in place, from the gradients averaged
+    over the rank's (data, seq) group of the current mesh; state.step
+    advances by one. Metrics are 0-d tensors on the device, averaged over
+    the data axis (reading them waits for the step)."""
+    def train_step(state, batch, rng=None):
         poses, tokens = batch
         lr = state.lr_schedule(state.step)
         for group in state.optimizer.param_groups:
             group['lr'] = lr
         state.optimizer.zero_grad(set_to_none=True)
-        seeds = draw_dropout_seeds(model, generator) if config.dropout > 0 else None
+        generator = pose_noise = None
+        if rng is None or isinstance(rng, torch.Generator):
+            generator = rng
+            seeds = draw_dropout_seeds(model, generator) if config.dropout > 0 else None
+        else:
+            t0 = time.perf_counter()
+            rows = poses.shape[0] * mesh_lib.current_mesh().size('data')
+            seeds, pose_noise = jax_step_draws(model, rng, state.step, rows)
+            train_step.draw_ms = (time.perf_counter() - t0) * 1e3
         out = model(poses, tokens, compute_losses=True, deterministic=False, step=state.step,
-                    generator=generator, dropout_seeds=seeds)
+                    generator=generator, dropout_seeds=seeds, pose_noise=pose_noise)
         loss = out['loss'].mean()
         loss.backward()
         distributed.average_gradients(model.parameters())
@@ -273,6 +348,7 @@ def make_transformer_train_step(model, config):
         return state, distributed.all_reduce_mean(_metrics(
             out, config, tokens, ('pose_loss', 'pose_pos_loss', 'pose_ori_loss',
                                   'localization_weight')))
+    train_step.draw_ms = None
     return train_step
 
 
@@ -286,15 +362,6 @@ def make_transformer_eval_step(model, config):
         return _metrics(out, config, tokens, ('pose_loss', 'pose_pos_loss',
                                               'pose_ori_loss')), out['logits']
     return eval_step
-
-
-def step_generator(seed, step):
-    """The CPU torch.Generator that train step `step` (the count of updates
-    before it) of a run with seed `seed` draws its dropout seeds and random
-    pose multiplier from: seeded with ((seed + 1) * 2**32 + step) mod 2**64,
-    the counterpart of JAX's fold_in(PRNGKey(seed + 1), step). A resumed
-    run draws what the uninterrupted run drew."""
-    return torch.Generator().manual_seed(((seed + 1) * 2 ** 32 + step) % 2 ** 64)
 
 
 def _to_device(batch, device):
@@ -342,8 +409,11 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
 
     Epochs of max(1, total_steps // epochs) train steps, counted from the
     step the run starts at, over load_token_dataset(dataset_path) with
-    process_batch(augment=config.augment_poses); each step draws from
-    step_generator(seed, step). Metrics go to job_dir/metrics.jsonl
+    process_batch(augment=config.augment_poses). The parameters start from
+    the JAX package's draw of PRNGKey(seed) and each step draws from the
+    key PRNGKey(seed + 1) folded with its step (jax_step_draws), as the JAX
+    package's train_transformer, so a resumed run draws what the
+    uninterrupted run drew. Metrics go to job_dir/metrics.jsonl
     (MetricLogger) once log_every steps have passed since the last record,
     and at the last step. At each epoch end, max(1, min(steps_per_epoch //
     10, 100)) eval steps over split 'test' (or 'val') in order; with
@@ -384,9 +454,9 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
         mesh = mesh_lib.create_mesh(seq_parallelism=seq_parallelism)
     local_batch = distributed.local_batch_size(batch_size)
     dtype = torch.bfloat16 if use_bf16 else torch.float32
-    model, state = init_transformer_state(config, torch.Generator().manual_seed(seed), dtype,
-                                          device, remat=remat, total_steps=total_steps,
-                                          dropout_impl=dropout_impl, remat_policy=remat_policy)
+    model, state = init_transformer_state(config, dtype=dtype, device=device, remat=remat,
+                                          total_steps=total_steps, dropout_impl=dropout_impl,
+                                          remat_policy=remat_policy, jax_seed=seed)
     ckpt = CheckpointManager(job_dir, config)
     start_step, data_state = 0, None
     if finetune_from is not None:
@@ -446,6 +516,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
                 for key, v in distributed.gather_lists(values).items()}
 
     progress = progress and distributed.rank() == 0
+    rng = jax_random.prng_key(seed + 1)
     step = last_save = last_log = start_step
     profiler = None
     try:
@@ -456,7 +527,7 @@ def train_transformer(config, dataset_path, job_dir, *, codebook_path=None, tota
                 batch = _to_device(next(train_iter), device)
                 if profile_batch and step == profile_batch - 1:
                     profiler = _start_profiler(device)
-                state, metrics = train_step(state, batch, step_generator(seed, state.step))
+                state, metrics = train_step(state, batch, rng)
                 step += 1
                 if profiler is not None and step == profile_batch + 1:
                     _stop_profiler(profiler, device, job_dir, step)

@@ -1,8 +1,9 @@
 """Weight bridges into the port's state_dicts. Imports no jax.
 
 state_dict_from_jax: JAX variables (nested dicts of numpy arrays; the caller
-hands over `jax.device_get(variables)`). jax_initial_state: the VQ-GAN's
-initial state as the JAX package draws it for a seed, with no jax. Port
+hands over `jax.device_get(variables)`). jax_initial_state: the VQ-GAN's or
+the MIGT's initial state as the JAX package draws it for a seed, with no
+jax. Port
 names follow the JAX names. The conversions:
   Conv kernel HWIO -> Conv2d weight OIHW;   Dense kernel [in, out] -> Linear weight [out, in];
   norm scale -> weight (GroupNorm under its GroupNorm_0 scope);
@@ -103,20 +104,29 @@ def state_dict_from_jax(model, variables):
 
 
 def jax_initial_state(model, seed, device=None):
-    """The VQ-GAN's initial state as the JAX package draws it from
-    jax.random.PRNGKey(seed) (viewformer_tpu/train/codebook.py
-    init_codebook_state), carried as state_dict_from_jax carries JAX
-    variables: a state_dict for `model`, on `device` (default: the model's).
+    """The initial state of `model`, a VQGAN or a MIGT, as the JAX package
+    draws it from jax.random.PRNGKey(seed) (viewformer_tpu/train/
+    codebook.py and transformer.py init_transformer_state), carried as
+    state_dict_from_jax carries JAX variables: a state_dict for `model`,
+    on `device` (default: the model's). Drawn on the host with
+    utils/jax_random.py (no jax), leaf by leaf, each from its scope's first
+    key of its stream (flax's variable keys).
 
-    The root key splits into the 'params' and 'quantizer' streams. Each Conv
-    kernel is lecun_normal in JAX's HWIO layout from its scope's first
-    'params' key; biases are zeros and GroupNorm scales ones. The codebook
-    is uniform in +-sqrt(3) from the root scope's first 'quantizer' key; its
-    EMA buffers and counter are zeros. Drawn on the host with
-    utils/jax_random.py (no jax), leaf by leaf."""
-    params_rng, quantizer_rng = jax_random.split(jax_random.prng_key(seed))
+    VQ-GAN: the root key splits into the 'params' and 'quantizer' streams.
+    Each Conv kernel is lecun_normal in JAX's HWIO layout; biases are zeros
+    and GroupNorm scales ones. The codebook is uniform in +-sqrt(3) from
+    the root scope's first 'quantizer' key; its EMA buffers and counter are
+    zeros.
+
+    MIGT: the root key is the 'params' stream. Dense kernels ([in, out]),
+    wte's embedding and wpe are truncated_normal(0.02); biases are zeros,
+    LayerNorm scales ones, pos_ori_weights [0, -3]."""
     if device is None:
         device = next(model.parameters()).device
+    if isinstance(model, VQGAN):
+        params_rng, quantizer_rng = jax_random.split(jax_random.prng_key(seed))
+    else:
+        params_rng, quantizer_rng = jax_random.prng_key(seed), None
     limit = np.sqrt(np.float32(3.0))
     state = {}
     for key, path, convert, tensor in jax_leaves(model):
@@ -128,6 +138,15 @@ def jax_initial_state(model, seed, device=None):
             out_ch, in_ch, kh, kw = tensor.shape
             array = convert(jax_random.lecun_normal(
                 jax_random.variable_key(params_rng, scope, 1), (kh, kw, in_ch, out_ch)))
+        elif leaf in ('kernel', 'embedding', 'wpe'):
+            # flax's truncated_normal(0.02): the draw times f32 0.02
+            shape = tensor.shape[::-1] if leaf == 'kernel' else tensor.shape
+            array = jax_random.truncated_normal(
+                jax_random.variable_key(params_rng, scope, 1), -2.0, 2.0, shape)
+            array *= np.float32(0.02)
+            array = convert(array) if convert is not None else array
+        elif leaf == 'pos_ori_weights':
+            array = np.array([0.0, -3.0], np.float32)
         elif leaf == 'scale':
             array = np.ones(tensor.shape, np.float32)
         elif leaf in ('bias', 'ema_cluster_size_hidden', 'ema_dw_hidden', 'counter'):
